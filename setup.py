@@ -5,6 +5,10 @@ built lazily at first use with g++ via ctypes, so no compilation happens
 at install time (the reference compiles its C++ in setup.py,
 ref setup.py:85-111; here the compute path is JAX/Pallas and only a small
 host-side helper is native).
+
+unicycler_tpu_torch, the PyTorch/CUDA port, ships its CUDA sources
+(csrc/*.cu) and host C++ (native/*.cpp) the same way: nvcc and g++ build
+them at first use.
 """
 
 from setuptools import find_packages, setup
@@ -14,7 +18,8 @@ setup(
     version='0.1.0',
     description='TPU-native hybrid bacterial genome assembly framework',
     packages=find_packages(exclude=['tests']),
-    package_data={'unicycler_tpu': ['native/*.cpp']},
+    package_data={'unicycler_tpu': ['native/*.cpp'],
+                  'unicycler_tpu_torch': ['csrc/*.cu', 'native/*.cpp']},
     python_requires='>=3.10',
     install_requires=['numpy', 'jax'],
     entry_points={

@@ -23,3 +23,8 @@ REFERENCE_TEST_DIR = '/root/reference/test'
 
 def reference_fixture(name):
     return os.path.join(REFERENCE_TEST_DIR, name)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'gpu: needs a CUDA device (skips without one)')

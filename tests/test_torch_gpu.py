@@ -1,0 +1,163 @@
+"""(h) The port's CUDA route against its plain versions, on the card.
+
+Every test here is marked `gpu` and skips on a host without a CUDA
+device; the decision is taken inside each test. The file imports nothing
+of JAX, so it runs on a machine that has only PyTorch:
+
+    UNICYCLER_TPU_TESTS=1 python -m pytest tests/test_torch_gpu.py -m gpu
+
+(UNICYCLER_TPU_TESTS=1 keeps tests/conftest.py from importing jax.)
+It drives the inputs of the CPU parity tests through the CUDA kernels:
+the wave route on the card equals the same route on the CPU (the plain
+versions, which the CPU tests hold to the JAX package), the kernels'
+raw outputs are bit-equal to their plain versions, and the device driver
+of align_jobs places the reads of the small synthetic genome.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import CONFIGS, SCORING_T, pa_key, tasks_np
+
+pytestmark = pytest.mark.gpu
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+def _routes(tasks, cfg, W, dev):
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    bt = [bo.BandedTask(*t) for t in tasks]
+    args = (Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W, True)
+    got = bo.align_banded_tape(bt, *args, device=dev)
+    want = bo.align_banded_tape(bt, *args, device='cpu')
+    return [pa_key(p) for p in got], [pa_key(p) for p in want]
+
+
+@pytest.mark.parametrize('W', [128, 512])
+@pytest.mark.parametrize('drift', [False, True], ids=['straight', 'drift'])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_wave_route_matches_cpu_route(cfg, drift, W):
+    dev = _cuda()
+    got, want = _routes(tasks_np(11, [60, 120, 200, 330, 90, 170], drift),
+                        cfg, W, dev)
+    assert got == want
+
+
+@pytest.mark.parametrize('W,bt', [(128, 8), (512, 32), (1024, 8),
+                                  (2048, 8)])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_kernels_bit_equal_to_plain(cfg, W, bt):
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops import wavetape_kernels as wk
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.wavetape import (build_wavetapes,
+                                                  forward_inputs)
+    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(23, [180, 333, 90, 400, 260], drift=True)]
+    tp = build_wavetapes(tasks, W, bo.build_corridor, bt=bt)[0]
+    up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
+    plane, _ = wk.group_plane(*up[2:11], tp.LR, tp.r_flat.shape[1], W)
+    got = wk.wavetape_forward_cuda(up[0], up[1], plane, scoring, config, W,
+                                   True)
+    want = wk.wavetape_forward_plain(up[0], up[1], plane, scoring, config,
+                                     W, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    score, ei, ej, moves, db = wk.wavetape_forward(
+        *up, scoring=scoring, config=config, W=W, need_moves=True)
+    valid = up[4] > 0
+    zero = torch.zeros_like(ei)
+    args = [x.to(torch.int32).contiguous() for x in
+            (moves, db, torch.from_numpy(tp.n_tasks).to(dev),
+             torch.where(valid, ei, zero), torch.where(valid, ej, zero),
+             torch.where(valid, torch.from_numpy(tp.abase).to(dev),
+                         zero))]
+    for g, w in zip(wk.wavetape_traceback_cuda(*args, W),
+                    wk.wavetape_traceback_plain(*args, W)):
+        assert torch.equal(g, w)
+
+    host = bo._pack_bucket(tasks, list(range(len(tasks))), 512, 512, W,
+                           bk.BT)
+    bargs = [torch.from_numpy(x).to(dev) for x in host]
+    for g, w in zip(bk.banded_batch_cuda(*bargs, scoring, config, W, True),
+                    bk.banded_batch_plain(*bargs, scoring, config, W, True)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('seed,sensitivity', [(1, 0), (2, 1)])
+def test_gpu_slice(seed, sensitivity):
+    """The device driver of align_jobs on the workload of the CPU slice
+    test: reads land on their origin and every CIGAR re-tallies to its
+    score; the wave route on the card equals the CPU route on the tasks
+    that seeding builds for those reads."""
+    dev = _cuda()
+    from unicycler_tpu_torch import settings, synth
+    from unicycler_tpu_torch.align import semi_global as sg
+    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+    from unicycler_tpu_torch.io.fastx import Read, Reference
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import minimizer as mz
+
+    rng = np.random.default_rng(seed)
+    reps = synth.random_replicons(rng, [24000, 6000])
+    reads = synth.simulate_reads(rng, reps, 8, n50=2500, min_len=1000,
+                                 max_len=4000)
+    refs = [Reference(str(i + 1), s) for i, s in enumerate(reps)]
+    rd = [Read(n, s, None) for n, s, _ in reads]
+    scheme = AlignmentScoringScheme('3,-6,-5,-2')
+    random.seed(0)
+    cuda_lib.reset_launches()
+    sg.align_jobs([sg.AlignJob(rd, refs, scheme,
+                               sensitivity_level=sensitivity)], device=dev)
+    assert cuda_lib.LAUNCHES['wavetape_fwd'] > 0
+    assert cuda_lib.LAUNCHES['wavetape_walk'] > 0
+    placed = 0
+    for read, (_, _, truth) in zip(rd, reads):
+        for a in read.alignments:
+            assert a.raw_score == a._pair.score
+        if read.alignments:
+            best = max(read.alignments, key=lambda a: a.raw_score)
+            placed += (best.ref is refs[truth.replicon]
+                       and bool(best.rev_comp) == truth.rev_comp
+                       and abs(best.ref_start_pos - truth.start) <= 100)
+    assert placed >= len(rd) - 1
+
+    band = settings.BAND_SIZES[0]
+    index = mz.get_cached_index([r.codes for r in refs],
+                                settings.SEED_KMER_SIZES[0], 10)
+    tasks = []
+    for read in rd:
+        clusters = index.lookup(read.codes)
+        tasks += sg._make_tasks(read, refs, clusters[
+            :settings.MAX_LINE_TRACE_COUNTS[0]], band)
+    tasks = [tuple(t.banded) for t in tasks]
+    got, want = _routes(tasks, 'semi', bo.band_width(band), dev)
+    assert got == want
+
+
+def test_gpu_retry_path_matches_cpu():
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(17, [90, 400, 230, 1500], drift=True)]
+    cuda_lib.reset_launches()
+    got = bo._align_banded_moves_path(tasks, Scoring(*SCORING_T),
+                                      SEMI_GLOBAL, 512, True, device=dev)
+    assert cuda_lib.LAUNCHES['banded'] > 0
+    want = bo._align_banded_moves_path(tasks, Scoring(*SCORING_T),
+                                       SEMI_GLOBAL, 512, True, device='cpu')
+    assert [pa_key(p) for p in got] == [pa_key(p) for p in want]

@@ -1,0 +1,124 @@
+"""unicycler_tpu_torch stands alone and keeps its device contract.
+
+(a) Importing every module of the port (and chip_smoke.py) loads neither
+jax nor any unicycler_tpu module. (f) Entry points with no device ask for
+CUDA and raise on a host without it; a kernel wrapper given CPU tensors
+runs its plain version and launches nothing.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import SCORING_T, tasks_np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r'''
+import importlib, importlib.util, pkgutil, sys
+sys.path.insert(0, %r)
+import unicycler_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    unicycler_tpu_torch.__path__, 'unicycler_tpu_torch.')
+    if importlib.util.find_spec(m.name).origin.endswith('.py')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert 'jax' not in sys.modules, 'jax was imported'
+bad = [m for m in sys.modules
+       if m == 'unicycler_tpu' or m.startswith('unicycler_tpu.')]
+assert not bad, bad
+print(len(names))
+'''
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', _IMPORT_ALL % REPO],
+                         cwd=REPO, env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def _job():
+    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+    from unicycler_tpu_torch.align.semi_global import AlignJob
+    from unicycler_tpu_torch.io.fastx import Read, Reference
+    rng = np.random.default_rng(0)
+    ref = ''.join('ACGT'[x] for x in rng.integers(0, 4, 3000))
+    return AlignJob([Read('r', ref[100:1100], None)],
+                    [Reference('1', ref)],
+                    AlignmentScoringScheme('3,-6,-5,-2'))
+
+
+@pytest.mark.parametrize('entry', ['align_jobs', 'align_banded',
+                                   'semi_global_align_long_reads'])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+    if torch.cuda.is_available():
+        pytest.skip('this host has a CUDA device')
+    from unicycler_tpu_torch.align import semi_global
+    from unicycler_tpu_torch.ops import banded
+    from unicycler_tpu_torch.ops.pairwise import Scoring
+    with pytest.raises(RuntimeError, match='CUDA'):
+        if entry == 'align_jobs':
+            semi_global.align_jobs([_job()])
+        elif entry == 'align_banded':
+            q, r, cr, cf = tasks_np(1, [50], False)[0]
+            banded.align_banded([banded.BandedTask(q, r, cr, cf)],
+                                Scoring(*SCORING_T))
+        else:
+            job = _job()
+            semi_global.semi_global_align_long_reads(
+                job.references, None, {'r': job.reads[0]}, ['r'], None, 1,
+                job.scoring_scheme, [None], False, 50, None, None, 0, 0,
+                None)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import wavetape_kernels as wk
+    from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
+    from unicycler_tpu_torch.ops.wavetape import (build_wavetapes,
+                                                  forward_inputs)
+
+    scoring = Scoring(*SCORING_T)
+    tasks = [bo.BandedTask(*t) for t in tasks_np(2, [90, 150], True)]
+    before = dict(cuda_lib.LAUNCHES)
+    W = 128
+    tp = build_wavetapes(tasks, W, bo.build_corridor)[0]
+    up = [torch.from_numpy(x) for x in forward_inputs(tp)]
+    score, ei, ej, moves, db = wk.wavetape_forward(
+        *up, scoring=scoring, config=SEMI_GLOBAL, W=W, need_moves=True)
+    plane, _ = wk.group_plane(*up[2:11], tp.LR, tp.r_flat.shape[1], W)
+    moves_p, _ = wk.wavetape_forward_plain(up[0], up[1], plane, scoring,
+                                           SEMI_GLOBAL, W, True)
+    assert torch.equal(moves, moves_p)
+    args = (moves, db, torch.from_numpy(tp.n_tasks), ei, ej,
+            torch.from_numpy(tp.abase))
+    rec, fin = wk.wavetape_traceback(*args, W)
+    rec_p, fin_p = wk.wavetape_traceback_plain(*args, W)
+    assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
+
+    host = bo._pack_bucket(tasks, [0, 1], 512, 512, W, 2)
+    got = bk.banded_batch(*(torch.from_numpy(x) for x in host), scoring,
+                          SEMI_GLOBAL, W, True)
+    want = bk.banded_batch_plain(*(torch.from_numpy(x) for x in host),
+                                 scoring, SEMI_GLOBAL, W, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert cuda_lib.LAUNCHES == before
+
+
+def test_wide_bands_raise_not_implemented():
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
+    tasks = [bo.BandedTask(*t) for t in tasks_np(3, [60], False)]
+    with pytest.raises(NotImplementedError, match='row-tape'):
+        bo.align_banded_tape(tasks, Scoring(*SCORING_T), SEMI_GLOBAL, 4096,
+                             True, device='cpu')

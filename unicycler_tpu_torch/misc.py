@@ -1,0 +1,186 @@
+"""Host helpers of the long-read alignment path (a subset of
+unicycler_tpu/misc.py: only what this package calls)."""
+
+
+import gzip
+import os
+import textwrap
+
+from . import settings
+
+
+_COMP_TABLE = bytes.maketrans(
+    b'ACGTacgtRYSWKMryswkmBVDHbvdhNn.-?',
+    b'TGCAtgcaYRSWMKyrswmkVBHDvbhdNn.-?')
+
+
+def reverse_complement(seq: str) -> str:
+    """IUPAC-aware reverse complement (semantics of ref misc.py:151-166)."""
+    return seq.translate(_COMP_TABLE)[::-1]
+
+
+def add_line_breaks_to_sequence(sequence: str, line_length: int = 0) -> str:
+    """Wrap a sequence for FASTA output; always ends with a newline."""
+    if not sequence:
+        return '\n'
+    if line_length <= 0:
+        line_length = settings.BASES_PER_FASTA_LINE
+    return '\n'.join(sequence[i:i + line_length]
+                     for i in range(0, len(sequence), line_length)) + '\n'
+
+
+def is_header_spades_format(contig_name: str) -> bool:
+    """True for SPAdes/Velvet-style headers like NODE_5_length_150905_cov_4.42."""
+    p = contig_name.split('_')
+    return (len(p) > 5 and p[0] in ('NODE', 'EDGE')
+            and p[2] == 'length' and p[4] == 'cov')
+
+
+def get_nice_header(header: str) -> str:
+    """Shorten a SPAdes-style header to NODE_<num>, else the first
+    whitespace token (ref misc.py get_nice_header)."""
+    if is_header_spades_format(header):
+        return '_'.join(header.split('_')[:2])
+    return header.split()[0]
+
+
+def float_to_str(num, decimals, max_num=0):
+    """Format a float with thousands separators (ref misc.py float_to_str)."""
+    if num is None:
+        num_str = 'n/a'
+    else:
+        num_str = '%.' + str(decimals) + 'f'
+        num_str = num_str % num
+        parts = num_str.split('.')
+        num_str = int_to_str(int(parts[0]))
+        if len(parts) > 1:
+            num_str += '.' + parts[1]
+    if max_num > 0:
+        max_str = float_to_str(max_num, decimals)
+        num_str = num_str.rjust(len(max_str))
+    return num_str
+
+
+def int_to_str(num, max_num=0):
+    num_str = 'n/a' if num is None else '{:,}'.format(num)
+    max_str = '{:,}'.format(int(max_num))
+    return num_str.rjust(len(max_str))
+
+
+def simplify_ranges(ranges):
+    """Merge overlapping/adjacent ranges into a minimal sorted set."""
+    fixed = [(min(a, b), max(a, b)) for a, b in ranges]
+    fixed.sort()
+    merged = []
+    for a, b in fixed:
+        if merged and a <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], b))
+        else:
+            merged.append((a, b))
+    return merged
+
+
+def range_is_contained(test_range, other_ranges):
+    """True if test_range is entirely covered by one of other_ranges."""
+    start, end = test_range
+    for a, b in other_ranges:
+        if a <= start and end <= b:
+            return True
+    return False
+
+
+def range_overlap(range_1, range_2):
+    """Size of the overlap between two ranges (can be negative for a gap)."""
+    return min(range_1[1], range_2[1]) - max(range_1[0], range_2[0])
+
+
+def range_overlap_size(test_range, other_ranges):
+    """Total bases of test_range covered by the (disjoint) other_ranges."""
+    return sum(max(0, range_overlap(test_range, other))
+               for other in simplify_ranges(other_ranges))
+
+
+def get_compression_type(filename):
+    magic = {'gz': b'\x1f\x8b', 'bz2': b'\x42\x5a\x68', 'zip': b'\x50\x4b\x03\x04'}
+    with open(filename, 'rb') as f:
+        start = f.read(4)
+    for ftype, sig in magic.items():
+        if start.startswith(sig):
+            if ftype != 'gz':
+                raise ValueError('cannot use ' + ftype + ' compression: ' + filename)
+            return ftype
+    return 'plain'
+
+
+def get_open_function(filename):
+    return gzip.open if get_compression_type(filename) == 'gz' else open
+
+
+def get_sequence_file_type(filename):
+    """'FASTA' or 'FASTQ' by first character."""
+    with get_open_function(filename)(filename, 'rt') as f:
+        first = f.read(1)
+    if first == '>':
+        return 'FASTA'
+    if first == '@':
+        return 'FASTQ'
+    raise ValueError('could not determine file type of ' + filename)
+
+
+def strip_read_extensions(read_file_name):
+    base = os.path.basename(read_file_name)
+    parts = base.split('.')
+    endings = {'gz', 'fasta', 'fna', 'fa', 'fas', 'fsa', 'fastq', 'fq'}
+    while parts and parts[-1].lower() in endings:
+        parts = parts[:-1]
+    return '.'.join(parts)
+
+
+def quit_with_error(message):
+    """Fatal-error exit path (ref misc.py:106)."""
+    raise SystemExit('Error: ' + message)
+
+
+def print_table(table, alignments='', max_col_width=30, col_separation=2,
+                indent=2, header=True, out=print, wrap_cells=False):
+    """Fixed-width text table. `alignments` is a string of L/R per column.
+    Over-width cells are shortened with '...' by default; with
+    wrap_cells=True they wrap onto continuation lines instead (the
+    reference's table behavior, ref misc.py:551-648 — the bridge
+    application table relies on it so full graph paths stay
+    reconstructable from logs)."""
+    if not table:
+        return
+    num_cols = max(len(row) for row in table)
+    col_widths = [0] * num_cols
+    for row in table:
+        for i, cell in enumerate(row):
+            col_widths[i] = min(max_col_width, max(col_widths[i], len(str(cell))))
+    aligns = (alignments + 'L' * num_cols)[:num_cols]
+    lines = []
+    for r, row in enumerate(table):
+        cell_lines = []
+        for i in range(num_cols):
+            cell = str(row[i]) if i < len(row) else ''
+            if len(cell) > max_col_width:
+                if wrap_cells:
+                    cell_lines.append(textwrap.wrap(cell, max_col_width)
+                                      or [''])
+                else:
+                    cell_lines.append([textwrap.shorten(
+                        cell, width=max_col_width, placeholder='...')])
+            else:
+                cell_lines.append([cell])
+        for sub in range(max(len(c) for c in cell_lines)):
+            cells = []
+            for i in range(num_cols):
+                cell = cell_lines[i][sub] if sub < len(cell_lines[i]) else ''
+                cells.append(cell.rjust(col_widths[i]) if aligns[i] == 'R'
+                             else cell.ljust(col_widths[i]))
+            lines.append(' ' * indent
+                         + (' ' * col_separation).join(cells).rstrip())
+        if r == 0 and header:
+            lines.append(' ' * indent + '-' * (sum(col_widths)
+                                               + col_separation * (num_cols - 1)))
+    for line in lines:
+        out(line)

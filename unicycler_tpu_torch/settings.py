@@ -1,0 +1,34 @@
+"""Tuning constants of the alignment path (copied from
+unicycler_tpu/settings.py; the port keeps only the constants its modules
+read, numerically identical, since they shape the pipeline's decisions).
+"""
+
+# Alignment driver (ref settings.py:18-67, unicycler_align.py)
+MIN_LONG_READ_ALIGNMENT_LENGTH = 50
+AUTO_SCORE_STDEV_ABOVE_RANDOM_ALIGNMENT_MEAN = 7
+
+# Sensitivity-level tables (shaped after ref include/settings.h:12-42).
+SEED_KMER_SIZES = (15, 14, 13, 12)        # minimiser k per sensitivity level
+# Banded-DP half-band per level. The reference uses 25/50/75/100
+# (settings.h:22-25); the band rounds up to 128-lane multiples
+# (ops/banded.band_width) anyway, so wider bands are nearly free and buy
+# alignment quality. The first pass runs at the full (refine-grade) width
+# directly: measured on the tough fixture, the old narrow-pass +
+# refine-everything flow gained its score almost entirely from the refine
+# pass's wider band, so one wide pass + margin-triggered refinement gives
+# the same scores with one fewer dispatch/fetch round trip per call.
+BAND_SIZES = (200, 250, 300, 350)
+# Band for the corridor-refinement pass (re-center on the found path).
+# Refinement now only runs for alignments whose traced path came within
+# REFINE_MARGIN lanes of the band edge — paths well inside the corridor
+# cannot improve from re-centering at the same width. (A narrower
+# refine band was tried on the TPU — radius 100, W=256 — and lost:
+# re-centered corridors at 100 lanes trigger band-escape retries on the
+# long high-error reads, costing more than the narrower DP saves.)
+REFINE_BAND = 200
+REFINE_MARGIN = 64
+FINE_ANCHOR_MAX_DIST = 300                # corridor collection distance
+FINE_ANCHOR_MAX_OCC = 256                 # per-kmer occurrence cap
+MAX_LINE_TRACE_COUNTS = (4, 8, 12, 16)    # candidate corridor cap
+
+BASES_PER_FASTA_LINE = 70
