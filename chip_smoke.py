@@ -18,7 +18,20 @@ Phases (every failed check raises, so the exit code is nonzero):
      CIGAR re-tallies to its raw score; counts kernel launches;
   5. the retry path: _align_banded_moves_path on the card against the CPU
      route, counting the banded kernel's launches;
-  6. summary: one {"kernels": [...]} line, then the card's line.
+  6. row-tape kernels: the forward kernel and walker of bands W > 2048
+     against their plain versions at W = 4096 and 8192 (8 and 32 tracks),
+     shortened tasks, bit-equal, CUDA-event times; and the full-matrix DP
+     (torch ops) timed at the bridging path's short-pair shape;
+  7. bridging: the 5 Mbp + 100 kbp genome with 7 copies of a 5,000 bp and
+     12 of a 1,300 bp repeat planted in the chromosome (each with a 250 bp
+     indel allele in about half of its copies), its collapsed overlap-0
+     GFA, 12 long reads around each copy, aligned by
+     semi_global_align_long_reads and bridged by create_long_read_bridges;
+     checks that every planted adjacency is bridged, that >= 95% of the
+     bridges take the true allele's path, that every CIGAR of consensus and
+     path scoring re-tallies to its score, and that the row-tape kernels
+     and the full-matrix DP ran;
+  8. summary: one {"kernels": [...]} line, then the card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
 without the package beside this script. Details go to
@@ -44,6 +57,10 @@ PEAK_OPS_S = 67e12
 OPS_PER_CELL_WAVE = 45
 OPS_PER_STEP_WALK = 30
 OPS_PER_CELL_BANDED = 45
+OPS_PER_CELL_ROW = 45
+# bytes a row-tape walker step reads: the row's band offset, region base
+# and moves word
+BYTES_PER_STEP_ROW_WALK = 12
 
 
 def log(msg=''):
@@ -89,6 +106,110 @@ def walk_steps(records):
     return int((rec == 1).sum()) + int((rec[rec >= 6] >> 2).sum())
 
 
+def wave_fwd_cost(q, r, plane, moves, best):
+    """(bytes, ops, cells) of one wavefront forward launch: every input
+    and output once; B * NG * G * W cells at OPS_PER_CELL_WAVE."""
+    from unicycler_tpu_torch.ops.wavetape import G
+    B, NG = plane.shape[:2]
+    cells = B * NG * G * moves.shape[2]
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (q, r, plane, moves, best))
+    return nbytes, cells * OPS_PER_CELL_WAVE, cells
+
+
+def wave_walk_cost(records, fin):
+    """(bytes, ops, steps) of one wavefront walk: 8 bytes read a step,
+    one record written per run."""
+    steps = walk_steps(records)
+    nbytes = steps * 8 + int((records != 0).sum()) * 4 + fin.numel() * 4
+    return nbytes, steps * OPS_PER_STEP_WALK, steps
+
+
+def row_walk_steps(records):
+    """Path steps a row-tape walk took: one M or I step per record with
+    move bits, plus the D steps counted in each record's upper bits."""
+    import torch
+    rec = records.to(torch.int64)
+    return int(((rec & 7) != 0).sum()) + int((rec >> 3).sum())
+
+
+def tape_fwd_cost(rowinfo, gplane, r_flat, moves, hatn, best, W):
+    """(bytes, ops, cells) of one row-tape forward launch: every input
+    read once and every output written once; the band cells of the
+    active rows (W each) at OPS_PER_CELL_ROW."""
+    nbytes = sum(x.numel() * x.element_size() for x in
+                 (rowinfo, gplane, r_flat, moves, hatn, best)
+                 if x is not None)
+    cells = int(((rowinfo >> 9) & 1).sum()) * W
+    return nbytes, cells * OPS_PER_CELL_ROW, cells
+
+
+def tape_walk_cost(records, fin):
+    """(bytes, ops, steps) of one row-tape walk, from its records."""
+    steps = row_walk_steps(records)
+    nbytes = steps * BYTES_PER_STEP_ROW_WALK \
+        + int((records != 0).sum()) * 4 + fin.numel() * 4
+    return nbytes, steps * OPS_PER_STEP_WALK, steps
+
+
+def kernel_costs(timings):
+    """Device time, bytes, operations, work (cells of a forward kernel,
+    steps of a walker) and bound per kernel over a run's timed launches
+    (cuda_lib.TIMINGS entries)."""
+    from unicycler_tpu_torch.ops.tape import MAX_SHIFT
+    from unicycler_tpu_torch.ops.tape_kernels import G
+    costs = {'wavetape_fwd': wave_fwd_cost, 'wavetape_walk': wave_walk_cost,
+             'tape_walk': tape_walk_cost,
+             # the row region frame is the band plus the in-group drift
+             'tape_fwd': lambda *o: tape_fwd_cost(
+                 *o, o[4].shape[-1] - G * MAX_SHIFT)}
+    totals = {}
+    for name, ev0, ev1, outs in timings:
+        agg = totals.setdefault(name, {'ms': 0.0, 'bytes': 0, 'ops': 0,
+                                       'work': 0})
+        agg['ms'] += ev0.elapsed_time(ev1)
+        if name in costs:
+            nbytes, ops, work = costs[name](*outs)
+            agg['bytes'] += nbytes
+            agg['ops'] += ops
+            agg['work'] += work
+    for agg in totals.values():
+        agg['bound_ms'] = bound_ms(agg['bytes'], agg['ops']) \
+            if agg['ops'] else None
+    return totals
+
+
+def log_kernel_times(per_kernel, launches):
+    for name, agg in sorted(per_kernel.items()):
+        bound = 'bound %.3f ms' % agg['bound_ms'] \
+            if agg['bound_ms'] is not None else 'no bound counted'
+        log('  %s: %.2f ms device time over %d launches (%s)'
+            % (name, agg['ms'], launches[name], bound))
+
+
+def retally(q, r, pa, scoring):
+    """Score of pa's CIGAR walked over the code arrays q (s1) and r (s2)
+    from its start cell, or None when it does not end at its end cell."""
+    i, j, total = int(pa.s1_start), int(pa.s2_start), 0
+    for count, op in pa.cigar:
+        count = int(count)
+        if op == 'M':
+            a, b = q[i:i + count], r[j:j + count]
+            same = int((a == b).sum())
+            total += same * scoring.match + (count - same) * scoring.mismatch
+            i += count
+            j += count
+        else:
+            total += scoring.gap_open + (count - 1) * scoring.gap_extend
+            if op == 'I':
+                i += count
+            else:
+                j += count
+    if (i, j) != (int(pa.s1_end), int(pa.s2_end)):
+        return None
+    return total
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -129,7 +250,7 @@ def phase_kernels(rng, dev, results):
     from unicycler_tpu_torch.ops import banded_kernel as bk
     from unicycler_tpu_torch.ops import wavetape_kernels as wk
     from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
-    from unicycler_tpu_torch.ops.wavetape import (G, build_wavetapes,
+    from unicycler_tpu_torch.ops.wavetape import (build_wavetapes,
                                                   forward_inputs)
 
     log('== phase 3: kernels against their plain versions')
@@ -152,14 +273,10 @@ def phase_kernels(rng, dev, results):
                                               W, True))
         err = max(exact('wavetape_fwd moves', mv_k, mv_p),
                   exact('wavetape_fwd best', best_k, best_p))
-        B, NG = plane.shape[:2]
-        cells = B * NG * G * W
-        nbytes = sum(x.numel() * x.element_size()
-                     for x in (q, r, plane, mv_k, best_k))
+        nbytes, ops, cells = wave_fwd_cost(q, r, plane, mv_k, best_k)
         results.append({'name': 'wavetape_fwd', 'W': W, 'bt': bt,
                         'ms': ms, 'plain_ms': plain_ms,
-                        'bound_ms': bound_ms(nbytes,
-                                             cells * OPS_PER_CELL_WAVE),
+                        'bound_ms': bound_ms(nbytes, ops),
                         'bytes': nbytes, 'cells': cells,
                         'max_abs_err': err})
 
@@ -179,13 +296,10 @@ def phase_kernels(rng, dev, results):
             lambda: wk.wavetape_traceback_plain(*wargs, W))
         werr = max(exact('wavetape_walk records', rec_k, rec_p),
                    exact('wavetape_walk fin', fin_k, fin_p))
-        steps = walk_steps(rec_k)
-        wbytes = steps * 8 + int((rec_k != 0).sum()) * 4 \
-            + fin_k.numel() * 4
+        wbytes, wops, steps = wave_walk_cost(rec_k, fin_k)
         results.append({'name': 'wavetape_walk', 'W': W, 'bt': bt,
                         'ms': wms, 'plain_ms': wplain_ms,
-                        'bound_ms': bound_ms(wbytes,
-                                             steps * OPS_PER_STEP_WALK),
+                        'bound_ms': bound_ms(wbytes, wops),
                         'bytes': wbytes, 'steps': steps,
                         'max_abs_err': werr})
         log('W=%4d bt=%2d  fwd %.3f ms (plain %.0f ms)  walk %.3f ms '
@@ -235,7 +349,6 @@ def phase_slice(args, dev, report):
     from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
     from unicycler_tpu_torch.align.semi_global import AlignJob, align_jobs
     from unicycler_tpu_torch.ops import cuda_lib
-    from unicycler_tpu_torch.ops.wavetape import G
     from unicycler_tpu_torch.utils import trace
 
     log('== phase 4: the slice (align_jobs on %s)' % dev)
@@ -273,28 +386,8 @@ def phase_slice(args, dev, report):
     trace.disable()
     peak = torch.cuda.max_memory_allocated()
 
-    per_kernel = {}
-    cells = 0
-    for name, ev0, ev1, outs in timings:
-        agg = per_kernel.setdefault(name, {'ms': 0.0, 'bytes': 0, 'ops': 0})
-        agg['ms'] += ev0.elapsed_time(ev1)
-        if name == 'wavetape_fwd':
-            q, r, plane, moves, best = outs
-            B, NG = plane.shape[:2]
-            W = moves.shape[2]
-            c = B * NG * G * W
-            cells += c
-            agg['ops'] += c * OPS_PER_CELL_WAVE
-            agg['bytes'] += sum(x.numel() * x.element_size()
-                                for x in (q, r, plane, moves, best))
-        elif name == 'wavetape_walk':
-            records, fin = outs
-            steps = walk_steps(records)
-            agg['ops'] += steps * OPS_PER_STEP_WALK
-            agg['bytes'] += steps * 8 + int((records != 0).sum()) * 4 \
-                + fin.numel() * 4
-    for agg in per_kernel.values():
-        agg['bound_ms'] = bound_ms(agg['bytes'], agg['ops'])
+    per_kernel = kernel_costs(timings)
+    cells = per_kernel.get('wavetape_fwd', {}).get('work', 0)
 
     # checks: placement of each read's best alignment, CIGAR tallies
     placed, tally_bad, n_aln = 0, 0, 0
@@ -321,9 +414,7 @@ def phase_slice(args, dev, report):
         '(%d cells), peak device memory %.1f MiB'
         % (wall, n_reads / wall, cells / wall, cells, peak / 2 ** 20))
     log('kernel launches: %s' % json.dumps(launches))
-    for name, agg in sorted(per_kernel.items()):
-        log('  %s: %.2f ms device time over %d launches (bound %.3f ms)'
-            % (name, agg['ms'], launches[name], agg['bound_ms']))
+    log_kernel_times(per_kernel, launches)
     log('placement: %d/%d best alignments on the true replicon and strand '
         'within 100 bp (%.1f%%); %d alignments, %d CIGAR tally mismatches'
         % (placed, len(reads0), 100 * frac, n_aln, tally_bad))
@@ -410,6 +501,276 @@ def phase_retry(args, dev, report):
     return launches
 
 
+def sync(dev):
+    import torch
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def phase_tape_kernels(rng, dev, results, report):
+    """The row-tape forward kernel and walker against their plain versions
+    at the bridging path's widths; the full-matrix DP timed on the card."""
+    import torch
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import pairwise as pw
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.encode import pack_pairs
+    from unicycler_tpu_torch.ops.tape import build_tapes, forward_inputs
+
+    log('== phase 6: row-tape kernels against their plain versions')
+    scoring = pw.Scoring(3, -6, -5, -2)
+    config = pw.FULLY_GLOBAL
+    for W, bt, size in ((4096, 8, 1200), (4096, 32, 1200), (8192, 8, 1200),
+                        (8192, 32, 900)):
+        tasks = [bo.BandedTask(*t) for t in
+                 synth.banded_tasks(rng, [size] * bt, drift=True)]
+        tp = build_tapes(tasks, W, bo.build_corridor, bt=bt)[0]
+        up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
+        rowinfo, gplane, _, _ = tk.tape_prolog(up[0], up[1], up[2], up[3],
+                                               up[5], up[7], up[8], W)
+        fwd = lambda: tk.tape_forward_cuda(rowinfo, gplane, up[1], scoring,
+                                           config, W, True)
+        fwd()
+        ms, out_k = cuda_time(fwd, reps=3)
+        plain_ms, out_p = cuda_time(
+            lambda: tk.tape_forward_plain(rowinfo, gplane, up[1], scoring,
+                                          config, W, True))
+        err = max(exact('tape_fwd ' + n, a, b) for n, a, b in
+                  zip(('moves', 'hatn', 'best'), out_k, out_p))
+        nbytes, ops, cells = tape_fwd_cost(rowinfo, gplane, up[1], *out_k,
+                                           W)
+        results.append({'name': 'tape_fwd', 'W': W, 'bt': bt, 'L': tp.L,
+                        'ms': ms, 'plain_ms': plain_ms,
+                        'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
+                        'cells': cells, 'max_abs_err': err})
+
+        score, ei, ej, moves, (c_rel, jr_rows) = tk.tape_forward(
+            *up, scoring=scoring, config=config, W=W, need_moves=True)
+        valid = up[6] > 0
+        zero = torch.zeros_like(ei)
+        wargs = [x.to(torch.int32).contiguous() for x in
+                 (moves, c_rel, jr_rows, torch.from_numpy(tp.n_tasks).to(dev),
+                  torch.where(valid, up[8] + ei, zero),
+                  torch.where(valid, ej, zero),
+                  torch.where(valid, up[8], zero))]
+        walk = lambda: tk.tape_traceback_cuda(*wargs, W)
+        walk()
+        wms, (rec_k, fin_k) = cuda_time(walk, reps=3)
+        wplain_ms, (rec_p, fin_p) = cuda_time(
+            lambda: tk.tape_traceback_plain(*wargs, W))
+        werr = max(exact('tape_walk records', rec_k, rec_p),
+                   exact('tape_walk fin', fin_k, fin_p))
+        wbytes, wops, steps = tape_walk_cost(rec_k, fin_k)
+        results.append({'name': 'tape_walk', 'W': W, 'bt': bt, 'L': tp.L,
+                        'ms': wms, 'plain_ms': wplain_ms,
+                        'bound_ms': bound_ms(wbytes, wops), 'bytes': wbytes,
+                        'steps': steps, 'max_abs_err': werr})
+        log('W=%4d bt=%2d L=%5d  fwd %.3f ms (plain %.0f ms)  walk %.3f ms '
+            '(plain %.0f ms, %d steps)  bit-equal'
+            % (W, bt, tp.L, ms, plain_ms, wms, wplain_ms, steps))
+
+    # the full-matrix DP (torch ops; no hand-written kernel yet) at the
+    # shape of a 1,300 bp repeat's consensus: 12 reads against one
+    pairs = synth.banded_tasks(rng, [1300] * 12)
+    qs, rs = [p[0] for p in pairs], [p[1] for p in pairs]
+    host = pack_pairs(qs, rs, max(len(q) for q in qs),
+                      max(len(r) for r in rs))
+    args = [torch.from_numpy(x).to(dev) for x in host]
+    full = lambda: pw.align_batch_device(*args, scoring, config, True)
+    full()
+    full_ms, out_k = cuda_time(full)
+    out_p = pw.align_batch_device(*(torch.from_numpy(x) for x in host),
+                                  scoring, config, True)
+    for n, a, b in zip(('score', 'end_i', 'end_j', 'moves'), out_k, out_p):
+        exact('full-matrix DP ' + n, a.cpu(), b)
+    cells = len(qs) * host[0].shape[1] * (host[2].shape[1] + 1)
+    report['full_dp'] = {'pairs': len(qs), 'n_pad': host[0].shape[1],
+                         'm_pad': host[2].shape[1], 'ms': full_ms,
+                         'cells': cells}
+    log('full-matrix DP: %d pairs of %d x %d, %.3f ms on the card (%.3g '
+        'cells/s), equal to the same torch ops on the CPU'
+        % (len(qs), host[0].shape[1], host[2].shape[1], full_ms,
+           cells / (full_ms * 1e-3)))
+
+
+def bridging_workload(seed, genome=5_000_000, plasmid=100_000,
+                      families=((5000, 7, 250), (1300, 12, 250)),
+                      per_copy=12, min_flank=1000):
+    """The repeat genome of phase 7: a chromosome of `genome` bp with the
+    families' copies planted between unique stretches (the anchors), a
+    circular plasmid as one more segment, the collapsed overlap-0 GFA, and
+    `per_copy` reads of the slice's length and error model around each
+    copy. Returns (gfa_text, copies, reads, anchor segment numbers)."""
+    import numpy as np
+    from unicycler_tpu_torch import synth
+    rng = np.random.default_rng(seed)
+    n_copies = sum(c for _, c, _ in families)
+    unique = (genome - sum(n * c for n, c, _ in families)) // (n_copies + 1)
+    chrom, gfa, copies = synth.repeat_genome(rng, [unique] * (n_copies + 1),
+                                             list(families))
+    lines = gfa.splitlines(keepends=True)
+    n_seg = sum(line.startswith('S\t') for line in lines)
+    pnum = n_seg + 1
+    gfa = ''.join(lines[:n_seg]) \
+        + 'S\t%d\t%s\tDP:f:1.0\n' % (pnum, synth.random_replicons(
+            rng, [plasmid])[0]) \
+        + ''.join(lines[n_seg:]) + 'L\t%d\t+\t%d\t+\t0M\n' % (pnum, pnum)
+    reads = synth.reads_around(rng, chrom, copies, per_copy,
+                               min_flank=min_flank)
+    return gfa, copies, reads, list(range(1, n_copies + 2)) + [pnum]
+
+
+def phase_bridging(args, dev, report, workload=None):
+    """Long-read bridging on the card: align, bridge, check."""
+    from unicycler_tpu_torch import misc
+    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+    from unicycler_tpu_torch.align.semi_global import \
+        semi_global_align_long_reads
+    from unicycler_tpu_torch.bridges.long_read import \
+        create_long_read_bridges
+    from unicycler_tpu_torch.graph.assembly_graph import AssemblyGraph
+    from unicycler_tpu_torch.io.fastx import Read, Reference
+    from unicycler_tpu_torch.ops import cuda_lib, dispatch
+    from unicycler_tpu_torch.utils import trace
+
+    log('== phase 7: bridging (create_long_read_bridges on %s)' % dev)
+    t0 = time.time()
+    gfa, copies, reads, anchor_nums = workload or bridging_workload(
+        args.seed)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    gfa_path = os.path.join(os.path.dirname(args.out), 'bridging.gfa')
+    with open(gfa_path, 'w') as f:
+        f.write(gfa)
+    graph = AssemblyGraph(gfa_path, 0)
+    os.remove(gfa_path)
+    refs = [Reference(str(n), s.forward_sequence)
+            for n, s in sorted(graph.segments.items())]
+    read_dict = {n: Read(n, s, None) for n, s, _ in reads}
+    names = [n for n, _, _ in reads]
+    scheme = AlignmentScoringScheme('3,-6,-5,-2')
+    log('graph: %d segments, %d bp; %d repeat copies; %d reads, %d bp '
+        '(set-up %.1f s)'
+        % (len(graph.segments), sum(len(s.forward_sequence) for s in
+                                    graph.segments.values()), len(copies),
+           len(reads), sum(len(s) for _, s, _ in reads), time.time() - t0))
+
+    random.seed(args.seed)
+    sync(dev)
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    semi_global_align_long_reads(refs, None, read_dict, names, None, 1,
+                                 scheme, [None], False, 50, None, None, 0, 0,
+                                 None, device=dev)
+    sync(dev)
+    align_wall = time.time() - t0
+    align_launches = dict(cuda_lib.LAUNCHES)
+    min_scaled = misc.get_percentile(
+        [a.scaled_score for n in names for a in read_dict[n].alignments],
+        5.0)
+    anchors = [graph.segments[n] for n in anchor_nums]
+
+    # observe every alignment of consensus and path scoring
+    captured = []
+    inner = dispatch.batch_align
+
+    def observed(q_list, r_list, scoring, config, band=1000, need_cigar=True,
+                 device=None):
+        out = inner(q_list, r_list, scoring, config, band, need_cigar,
+                    device=device)
+        if need_cigar:
+            captured.extend((q, r, pa, scoring)
+                            for q, r, pa in zip(q_list, r_list, out))
+        return out
+
+    trace.reset()
+    trace.enable()
+    cuda_lib.TIMINGS = []
+    dispatch.batch_align = observed
+    sync(dev)
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    try:
+        bridges = create_long_read_bridges(graph, read_dict, names, anchors,
+                                           0, min_scaled, 1, scheme, 50,
+                                           False, 10.0, device=dev)
+        sync(dev)
+    finally:
+        dispatch.batch_align = inner
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+    trace.disable()
+    counters = trace.as_dict()['counters']
+    spans = trace.as_dict()['spans']
+
+    per_kernel = kernel_costs(timings)
+
+    truth = {(cp.left, cp.right): list(cp.path) for cp in copies}
+    found, right = set(), 0
+    for b in bridges:
+        start, end = b.start_segment, b.end_segment
+        graph_path = list(b.graph_path)
+        if start < 0:
+            start, end = -end, -start
+            graph_path = [-x for x in reversed(graph_path)]
+        if (start, end) in truth:
+            found.add((start, end))
+            right += graph_path == truth[(start, end)]
+    missing = sorted(set(truth) - found)
+    frac = right / max(len(bridges), 1)
+    tally_bad = degenerate = 0
+    for q, r, pa, scoring in captured:
+        if not pa.cigar:
+            degenerate += 1
+        elif retally(q, r, pa, scoring) != pa.score:
+            tally_bad += 1
+    widths = {k[len('tape.rows.'):]: v for k, v in counters.items()
+              if k.startswith('tape.rows.W')}
+    busy = sum(a['ms'] for a in per_kernel.values())
+    log('alignment: %.2f s wall, launches %s'
+        % (align_wall, json.dumps(align_launches)))
+    log('bridging: %.2f s wall, %d bridges, kernel launches %s'
+        % (wall, len(bridges), json.dumps(launches)))
+    log('row-tape launch widths (tape rows by W and tracks): %s'
+        % json.dumps(widths))
+    log('pairs: %d full-matrix DP, %d banded; %d alignments re-tallied, %d '
+        'degenerate (empty CIGAR)'
+        % (counters.get('dispatch.full_dp_pairs', 0),
+           counters.get('dispatch.banded_pairs', 0), len(captured),
+           degenerate))
+    log_kernel_times(per_kernel, launches)
+    log('device busy at most %.1f%% of the bridging wall (kernel time / '
+        'wall)' % (100 * busy * 1e-3 / wall))
+    log('host spans (s): %s' % json.dumps(
+        {k: v['seconds'] for k, v in spans.items()}))
+    log('placement: %d/%d planted adjacencies bridged, %d/%d bridges on the '
+        'true allele path (%.1f%%); %d CIGAR tally mismatches'
+        % (len(found), len(truth), right, len(bridges), 100 * frac,
+           tally_bad))
+    report['bridging'] = {
+        'align_wall_s': align_wall, 'wall_s': wall, 'bridges': len(bridges),
+        'planted': len(truth), 'bridged': len(found), 'true_path': right,
+        'alignments': len(captured), 'degenerate': degenerate,
+        'launches': launches, 'align_launches': align_launches,
+        'per_kernel': per_kernel, 'counters': counters, 'spans': spans}
+    if missing:
+        raise AssertionError('planted adjacencies without a bridge: %s'
+                             % missing)
+    if frac < 0.95:
+        raise AssertionError('only %.1f%% of bridges take the true path'
+                             % (100 * frac))
+    if tally_bad:
+        raise AssertionError('%d CIGARs do not re-tally to their score'
+                             % tally_bad)
+    if launches['tape_fwd'] <= 0 or launches['tape_walk'] <= 0:
+        raise AssertionError('bridging did not go through the row-tape '
+                             'kernels')
+    if counters.get('dispatch.full_dp_pairs', 0) <= 0:
+        raise AssertionError('bridging did not run the full-matrix DP')
+    return launches, per_kernel, widths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -441,6 +802,10 @@ def main():
     launches, per_kernel = phase_slice(args, dev, report)
     phase_small_reference(dev)
     retry_launches = phase_retry(args, dev, report)
+    phase_tape_kernels(np.random.default_rng(args.seed + 2), dev, kres,
+                       report)
+    bridge_launches, bridge_kernels, widths = phase_bridging(args, dev,
+                                                              report)
     assert 'jax' not in sys.modules
 
     sources = {'wavetape_fwd': ('unicycler_tpu_torch/csrc/wavetape_fwd.cu',
@@ -448,13 +813,27 @@ def main():
                'wavetape_walk': ('unicycler_tpu_torch/csrc/wavetape_walk.cu',
                                  'unicycler_tpu/ops/pallas_wavetape.py:608'),
                'banded': ('unicycler_tpu_torch/csrc/banded.cu',
-                          'unicycler_tpu/ops/pallas_banded.py:333')}
+                          'unicycler_tpu/ops/pallas_banded.py:333'),
+               'tape_fwd': ('unicycler_tpu_torch/csrc/tape_fwd.cu',
+                            'unicycler_tpu/ops/pallas_tape.py:583'),
+               'tape_walk': ('unicycler_tpu_torch/csrc/tape_walk.cu',
+                             'unicycler_tpu/ops/pallas_tape.py:777')}
+    # the row-tape kernels' summary row is the bridging phase's commonest
+    # launch shape; the others' the widest main-path shape measured
+    main_shape = max(widths, key=widths.get) if widths else ''
     kernels = []
     for kname, (src, replaces) in sources.items():
         rows = [r for r in kres if r['name'] == kname]
-        # the summary row is the widest main-path shape measured (W=1024)
-        row = max(rows, key=lambda r: (r['W'], r['bt']))
-        n_launch = retry_launches if kname == 'banded' else launches[kname]
+        shaped = [r for r in rows
+                  if 'W%d.bt%d' % (r['W'], r['bt']) == main_shape]
+        row = shaped[0] if kname.startswith('tape_') and shaped else \
+            max(rows, key=lambda r: (r['W'], r['bt']))
+        if kname == 'banded':
+            n_launch = retry_launches
+        elif kname.startswith('tape_'):
+            n_launch = bridge_launches[kname]
+        else:
+            n_launch = launches[kname]
         entry = {'name': kname, 'route': 'cuda', 'source': src,
                  'replaces': replaces, 'launches': n_launch,
                  'max_abs_err': max(r['max_abs_err'] for r in rows),
@@ -464,16 +843,18 @@ def main():
                  > row['bytes'] / PEAK_BYTES_S else 'bytes',
                  'library_ms': None, 'shape': {'W': row['W'],
                                                'bt': row['bt']}}
-        if kname in per_kernel:
-            entry['main_path_ms'] = per_kernel[kname]['ms']
-            entry['main_path_bound_ms'] = per_kernel[kname]['bound_ms']
+        main_kernels = bridge_kernels if kname.startswith('tape_') \
+            else per_kernel
+        if kname in main_kernels:
+            entry['main_path_ms'] = main_kernels[kname]['ms']
+            entry['main_path_bound_ms'] = main_kernels[kname]['bound_ms']
         kernels.append(entry)
     report['kernels'] = kernels
     report['kernel_rows'] = kres
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(report, f, indent=1)
-    log('== phase 6: summary')
+    log('== phase 8: summary')
     log(json.dumps({'kernels': kernels}))
     log(smi_line)
     print(json.dumps({'ok': True, 'device': {

@@ -161,3 +161,70 @@ def test_gpu_retry_path_matches_cpu():
     want = bo._align_banded_moves_path(tasks, Scoring(*SCORING_T),
                                        SEMI_GLOBAL, 512, True, device='cpu')
     assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
+
+
+@pytest.mark.parametrize('bt', [8, 32])
+@pytest.mark.parametrize('W', [4096, 8192])
+@pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
+def test_gpu_tape_kernels_bit_equal_to_plain(cfg, W, bt):
+    """The row-tape forward kernel and walker against their plain
+    versions, at the bands of long-read bridging."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.tape import build_tapes, forward_inputs
+    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(29, [180, 333, 90, 400, 260, 700, 150, 520, 64],
+                      drift=True)]
+    tp = build_tapes(tasks, W, bo.build_corridor, bt=bt)[0]
+    up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
+    rowinfo, gplane, _, _ = tk.tape_prolog(up[0], up[1], up[2], up[3],
+                                           up[5], up[7], up[8], W)
+    got = tk.tape_forward_cuda(rowinfo, gplane, up[1], scoring, config, W,
+                               True)
+    want = tk.tape_forward_plain(rowinfo, gplane, up[1], scoring, config, W,
+                                 True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    score, ei, ej, moves, (c_rel, jr_rows) = tk.tape_forward(
+        *up, scoring=scoring, config=config, W=W, need_moves=True)
+    valid = up[6] > 0
+    zero = torch.zeros_like(ei)
+    args = [x.to(torch.int32).contiguous() for x in
+            (moves, c_rel, jr_rows, torch.from_numpy(tp.n_tasks).to(dev),
+             torch.where(valid, up[8] + ei, zero),
+             torch.where(valid, ej, zero), torch.where(valid, up[8], zero))]
+    rec, fin = tk.tape_traceback_cuda(*args, W)
+    rec_p, fin_p = tk.tape_traceback_plain(*args, W)
+    assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
+    assert int((rec != 0).sum()) > 1000
+
+
+@pytest.mark.parametrize('cfg', ['global', 'path'])
+def test_gpu_batch_align_row_route_matches_cpu(cfg, monkeypatch):
+    """batch_align at W = 4096 on the card (row-tape kernels) equals the
+    CPU route (bucketed row DP): the row route is exact per row band."""
+    dev = _cuda()
+    from unicycler_tpu_torch import settings
+    from unicycler_tpu_torch.ops import cuda_lib, dispatch
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    monkeypatch.setattr(settings, 'MAX_FULL_DP_CELLS', 1 << 16)
+    rng = np.random.default_rng(7)
+    qs, rs = [], []
+    for n in (700, 1500, 400, 2600, 1100):
+        r = rng.integers(0, 4, n).astype(np.int8)
+        keep = rng.random(n) > 0.05
+        q = r[keep].copy()
+        flip = rng.random(len(q)) < 0.05
+        q[flip] = (q[flip] + 1) % 4
+        qs.append(q)
+        rs.append(r)
+    args = (Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), 1000, True)
+    cuda_lib.reset_launches()
+    got = dispatch.batch_align(qs, rs, *args, device=dev)
+    assert cuda_lib.LAUNCHES['tape_fwd'] > 0
+    assert cuda_lib.LAUNCHES['tape_walk'] > 0
+    want = dispatch.batch_align(qs, rs, *args, device='cpu')
+    assert [pa_key(p) for p in got] == [pa_key(p) for p in want]

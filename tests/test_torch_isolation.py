@@ -56,12 +56,15 @@ def _job():
 
 
 @pytest.mark.parametrize('entry', ['align_jobs', 'align_banded',
-                                   'semi_global_align_long_reads'])
+                                   'semi_global_align_long_reads',
+                                   'align_pairs', 'batch_align',
+                                   'create_long_read_bridges'])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
     from unicycler_tpu_torch.align import semi_global
-    from unicycler_tpu_torch.ops import banded
+    from unicycler_tpu_torch.bridges import long_read
+    from unicycler_tpu_torch.ops import banded, dispatch, pairwise
     from unicycler_tpu_torch.ops.pairwise import Scoring
     with pytest.raises(RuntimeError, match='CUDA'):
         if entry == 'align_jobs':
@@ -70,6 +73,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
             q, r, cr, cf = tasks_np(1, [50], False)[0]
             banded.align_banded([banded.BandedTask(q, r, cr, cf)],
                                 Scoring(*SCORING_T))
+        elif entry == 'align_pairs':
+            q, r, _, _ = tasks_np(1, [50], False)[0]
+            pairwise.align_pairs([q], [r], Scoring(*SCORING_T))
+        elif entry == 'batch_align':
+            q, r, _, _ = tasks_np(1, [50], False)[0]
+            dispatch.batch_align([q], [r], Scoring(*SCORING_T),
+                                 pairwise.FULLY_GLOBAL)
+        elif entry == 'create_long_read_bridges':
+            long_read.create_long_read_bridges(
+                None, {}, [], [], 0, 0.0, 1, None, 50, False, 10.0)
         else:
             job = _job()
             semi_global.semi_global_align_long_reads(
@@ -82,8 +95,11 @@ def test_cpu_tensors_take_the_plain_versions():
     from unicycler_tpu_torch.ops import banded as bo
     from unicycler_tpu_torch.ops import banded_kernel as bk
     from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import tape_kernels as tk
     from unicycler_tpu_torch.ops import wavetape_kernels as wk
     from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
+    from unicycler_tpu_torch.ops.tape import build_tapes
+    from unicycler_tpu_torch.ops.tape import forward_inputs as tape_inputs
     from unicycler_tpu_torch.ops.wavetape import (build_wavetapes,
                                                   forward_inputs)
 
@@ -105,6 +121,24 @@ def test_cpu_tensors_take_the_plain_versions():
     rec_p, fin_p = wk.wavetape_traceback_plain(*args, W)
     assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
 
+    tp = build_tapes(tasks, 4096, bo.build_corridor)[0]
+    up = [torch.from_numpy(x) for x in tape_inputs(tp)]
+    score, ei, ej, moves, (c_rel, jr_rows) = tk.tape_forward(
+        *up, scoring=scoring, config=SEMI_GLOBAL, W=4096, need_moves=True)
+    rowinfo, gplane, _, _ = tk.tape_prolog(up[0], up[1], up[2], up[3],
+                                           up[5], up[7], up[8], 4096)
+    moves_p = tk.tape_forward_plain(rowinfo, gplane, up[1], scoring,
+                                    SEMI_GLOBAL, 4096, True)[0]
+    assert torch.equal(moves, moves_p)
+    valid = up[6] > 0
+    zero = torch.zeros_like(ei)
+    targs = (moves, c_rel, jr_rows, torch.from_numpy(tp.n_tasks),
+             torch.where(valid, up[8] + ei, zero),
+             torch.where(valid, ej, zero), torch.where(valid, up[8], zero))
+    rec, fin = tk.tape_traceback(*targs, 4096)
+    rec_p, fin_p = tk.tape_traceback_plain(*targs, 4096)
+    assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
+
     host = bo._pack_bucket(tasks, [0, 1], 512, 512, W, 2)
     got = bk.banded_batch(*(torch.from_numpy(x) for x in host), scoring,
                           SEMI_GLOBAL, W, True)
@@ -116,9 +150,33 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_wide_bands_raise_not_implemented():
+    """Bands W > 2048 once raised NotImplementedError here; they now take
+    the row-tape route, which on CPU tensors runs the kernels' plain
+    versions and launches nothing."""
     from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import tape_kernels as tk
     from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
-    tasks = [bo.BandedTask(*t) for t in tasks_np(3, [60], False)]
-    with pytest.raises(NotImplementedError, match='row-tape'):
-        bo.align_banded_tape(tasks, Scoring(*SCORING_T), SEMI_GLOBAL, 4096,
-                             True, device='cpu')
+    from unicycler_tpu_torch.utils import trace
+    tasks = [bo.BandedTask(*t) for t in tasks_np(3, [60, 130], True)]
+    before = dict(cuda_lib.LAUNCHES)
+    calls = []
+    plain = tk.tape_forward_plain
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].device.type)
+        return plain(*args, **kwargs)
+
+    tk.tape_forward_plain = spy
+    trace.reset()
+    trace.enable()
+    try:
+        got = bo.align_banded_tape(tasks, Scoring(*SCORING_T), SEMI_GLOBAL,
+                                   4096, True, device='cpu')
+    finally:
+        tk.tape_forward_plain = plain
+        trace.disable()
+    assert calls == ['cpu']
+    assert trace.as_dict()['counters'].get('tape.rows.W4096.bt8') == 512
+    assert [bool(p.cigar) for p in got] == [True, True]
+    assert cuda_lib.LAUNCHES == before

@@ -10,6 +10,8 @@ import random
 import numpy as np
 import pytest
 
+import torch_parity  # noqa: F401  (one torch thread per process)
+
 from unicycler_tpu_torch import synth
 
 

@@ -2,8 +2,16 @@
 unicycler_tpu: the same numpy inputs go to both packages."""
 
 import numpy as np
+import torch
 
 from unicycler_tpu_torch import synth
+
+# The test run spreads files over several processes on a few cores. A
+# pool of intra-op threads in each oversubscribes them, and the plain
+# versions' many small ops then stall on the pools' barriers (tens of
+# times slower). One thread per process keeps every file near its solo
+# time.
+torch.set_num_threads(1)
 
 SCORING_T = (3, -6, -5, -2)
 

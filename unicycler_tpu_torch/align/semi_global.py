@@ -55,20 +55,42 @@ _RANDOM_SCORE_TABLE = {
 
 
 def get_auto_score_threshold(scoring_scheme, std_devs_over_mean=
-                             settings.AUTO_SCORE_STDEV_ABOVE_RANDOM_ALIGNMENT_MEAN):
+                             settings.AUTO_SCORE_STDEV_ABOVE_RANDOM_ALIGNMENT_MEAN,
+                             device=None):
     """Low score threshold from random-alignment statistics
-    (ref unicycler_align.py:473-520)."""
+    (ref unicycler_align.py:473-520). Schemes outside the table measure
+    the distribution with the full-matrix DP on `device`."""
     key = str(scoring_scheme)
-    if key not in _RANDOM_SCORE_TABLE:
-        raise NotImplementedError(
-            'scoring scheme %s has no precomputed random-alignment '
-            'distribution; measuring one needs the full-matrix pairwise DP '
-            '(unicycler_tpu/ops/pairwise.py:align_pairs), not ported yet'
-            % key)
-    mean, std_dev = _RANDOM_SCORE_TABLE[key]
+    if key in _RANDOM_SCORE_TABLE:
+        mean, std_dev = _RANDOM_SCORE_TABLE[key]
+    else:
+        mean, std_dev = get_random_sequence_alignment_mean_and_std_dev(
+            100, 10000, scoring_scheme, device=device)
     threshold = mean + std_devs_over_mean * std_dev
     threshold = max(50.0, min(95.0, threshold))
     return threshold, mean, std_dev
+
+
+def get_random_sequence_alignment_mean_and_std_dev(seq_len, count,
+                                                   scoring_scheme,
+                                                   device=None):
+    """Scaled scores of global alignments of random sequence pairs, batched
+    on the device (replaces src/random_alignments.cpp:30-52)."""
+    rng = np.random.RandomState(0)
+    q = [rng.randint(0, 4, seq_len).astype(np.int8) for _ in range(count)]
+    r = [rng.randint(0, 4, seq_len).astype(np.int8) for _ in range(count)]
+    res = pw.align_pairs(q, r, scoring=scoring_scheme.to_ops(),
+                         config=pw.FULLY_GLOBAL, need_cigar=True,
+                         device=device)
+    scaled = []
+    for pa in res:
+        align_len = sum(c for c, _ in pa.cigar)
+        if align_len == 0:
+            continue
+        perfect = scoring_scheme.match * align_len
+        worst = scoring_scheme.mismatch * align_len
+        scaled.append(100.0 * (pa.score - worst) / (perfect - worst))
+    return float(np.mean(scaled)), float(np.std(scaled))
 
 
 def _dump_seed_debug(debug_dir, read, level, clusters):
@@ -572,7 +594,7 @@ def semi_global_align_long_reads(references, ref_fasta, read_dict, read_names,
     low_score_threshold = low_score_threshold_list[0]
     if low_score_threshold is None:
         low_score_threshold, rand_mean, rand_std = get_auto_score_threshold(
-            scoring_scheme)
+            scoring_scheme, device=dev)
         low_score_threshold_list[0] = low_score_threshold
         if display_low_score and verbosity > 0:
             log.log('Random alignment mean score: '

@@ -3,6 +3,7 @@ unicycler_tpu/misc.py: only what this package calls)."""
 
 
 import gzip
+import math
 import os
 import textwrap
 
@@ -44,6 +45,43 @@ def get_nice_header(header: str) -> str:
     return header.split()[0]
 
 
+def get_percentile(values, percentile: float):
+    """Nearest-rank percentile (ref misc.py:182-201)."""
+    return get_percentile_sorted(sorted(values), percentile)
+
+
+def get_percentile_sorted(sorted_values, percentile: float):
+    if not sorted_values:
+        return 0.0
+    rank = int(math.ceil((percentile / 100.0) * len(sorted_values)))
+    if rank == 0:
+        return sorted_values[0]
+    return sorted_values[rank - 1]
+
+
+def weighted_average(a, b, weight_a, weight_b):
+    total = weight_a + weight_b
+    if total == 0:
+        return (a + b) / 2.0
+    return a * (weight_a / total) + b * (weight_b / total)
+
+
+def score_function(val: float, half_score_val: float) -> float:
+    """0 → 0.0, half_score_val → 0.5, ∞ → 1.0 (ref misc.py:370-377)."""
+    return 1.0 - (half_score_val / (half_score_val + val))
+
+
+def get_num_agreement(num_1, num_2) -> float:
+    """How well two numbers agree: 1.0 perfect, 0.0 worst (ref misc.py:284)."""
+    if num_1 == 0.0 and num_2 == 0.0:
+        return 1.0
+    if num_1 < 0.0 and num_2 < 0.0:
+        num_1, num_2 = -num_1, -num_2
+    if num_1 * num_2 < 0.0:
+        return 0.0
+    return min(num_1, num_2) / max(num_1, num_2)
+
+
 def float_to_str(num, decimals, max_num=0):
     """Format a float with thousands separators (ref misc.py float_to_str)."""
     if num is None:
@@ -65,6 +103,25 @@ def int_to_str(num, max_num=0):
     num_str = 'n/a' if num is None else '{:,}'.format(num)
     max_str = '{:,}'.format(int(max_num))
     return num_str.rjust(len(max_str))
+
+
+def flip_number_order(num_1: int, num_2: int):
+    """Possibly flip a signed segment pair into canonical orientation.
+
+    The rule is arbitrary but must be consistent so bridging sequences are
+    always collected in the same direction (ref misc.py:299-317).
+    """
+    if num_1 > 0 and num_2 > 0:
+        flip = False
+    elif num_1 < 0 and num_2 < 0:
+        flip = True
+    elif num_1 < 0:
+        flip = abs(num_1) > abs(num_2)
+    else:
+        flip = abs(num_2) > abs(num_1)
+    if flip:
+        return (-num_2, -num_1), True
+    return (num_1, num_2), False
 
 
 def simplify_ranges(ranges):

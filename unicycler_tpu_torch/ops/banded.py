@@ -4,12 +4,14 @@ Counterpart of unicycler_tpu/ops/banded.py. The corridor is a per-row band
 offset array c[i] (nondecreasing): row i of the DP covers reference
 columns j in [c[i], c[i]+W). Two routes, chosen by the device:
 
-  * CUDA (the default): every task of a call is laid out on wavefront
-    tapes (ops/wavetape.py) and runs through the wavefront forward kernel
-    and its walker (ops/wavetape_kernels.py); records come back to the
-    host and decode into CIGARs. Tasks whose walk escapes the band, or
-    whose corner a no-free-end config could not reach in the group-
-    quantized window, retry on the bucketed banded kernel
+  * CUDA (the default): every task of a call is laid out on tapes and
+    runs through a forward kernel and its on-device walker; records come
+    back to the host and decode into CIGARs. Bands W <= 2048 take the
+    wavefront tapes (ops/wavetape.py, ops/wavetape_kernels.py), wider
+    bands the row tapes (ops/tape.py, ops/tape_kernels.py), as the JAX
+    package's use_wavetape routes them. Tasks whose walk escapes the band,
+    or whose corner a no-free-end config could not reach in the wave
+    route's group-quantized window, retry on the bucketed banded kernel
     (ops/banded_kernel.py) with a host traceback.
   * CPU: the JAX package's CPU route — the bucketed row DP, whose DP is
     the plain twin of the XLA _banded_single, decoded on the host.
@@ -31,6 +33,13 @@ from .pairwise import NEG, PairAlignment, SEMI_GLOBAL
 from .tape import MAX_SHIFT
 
 WAVE_MAX_W = 2048      # widest band the wavefront kernels take
+
+
+def use_wavetape(W):
+    """True when a band of W lanes rides the wavefront kernels; wider
+    bands take the row-tape kernels (the JAX package's routing, without
+    its environment override and VMEM-budget fallback)."""
+    return W <= WAVE_MAX_W
 
 
 def decode_banded_traceback(moves: np.ndarray, c: np.ndarray, end_i: int,
@@ -279,8 +288,8 @@ def align_banded(tasks: List[BandedTask], scoring, config=SEMI_GLOBAL,
                  band: int = 25, need_cigar: bool = True, device=None
                  ) -> List[PairAlignment]:
     """Align a list of banded tasks. On CUDA (the default device) the whole
-    call rides wavefront-tape launches; on the CPU it takes the bucketed
-    row DP (the JAX package's CPU route)."""
+    call rides tape launches (wave or row tapes by W); on the CPU it takes
+    the bucketed row DP (the JAX package's CPU route)."""
     if not tasks:
         return []
     dev = resolve_device(device)
@@ -293,12 +302,16 @@ def align_banded(tasks: List[BandedTask], scoring, config=SEMI_GLOBAL,
     for (n_pad, m_pad), idxs in _buckets(tasks, range(len(tasks))).items():
         qb, r_ext, cb, n_acts, m_acts = _pack_bucket(tasks, idxs, n_pad,
                                                      m_pad, W, len(idxs))
+        # rows past the longest query cannot change any output: the DP
+        # runs only as far as that query
+        max_rows = int(n_acts.max())
         score, end_i, end_j, moves = banded_batch(
-            *(torch.from_numpy(x) for x in (qb, r_ext, cb, n_acts, m_acts)),
+            *(torch.from_numpy(np.ascontiguousarray(x)) for x in
+              (qb[:, :max_rows], r_ext, cb[:, :max_rows + 1], n_acts,
+               m_acts)),
             scoring, config, W, need_cigar)
         if need_cigar:
-            max_rows = int(n_acts.max())
-            moves = moves[:, :max_rows].numpy()
+            moves = moves.numpy()
         _emit_results(results, idxs, score.numpy(), end_i.numpy(),
                       end_j.numpy(), moves, cb, n_acts, m_acts, need_cigar,
                       config)
@@ -358,6 +371,37 @@ def _wavetape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
     return pending
 
 
+def _tape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
+    """Build the row tapes (bands W > 2048) and queue their kernels
+    (asynchronously on CUDA). Same pending contract as _wavetape_dispatch."""
+    from .tape import build_tapes, forward_inputs
+    from .tape_kernels import tape_forward, tape_traceback
+    from ..utils import trace
+    with trace.span('tape_build'):
+        launches = build_tapes(live_tasks, W, build_corridor)
+    pending = []
+    for tp in launches:
+        trace.add('tape.launches')
+        trace.add('tape.rows', tp.L_real)
+        trace.add('tape.rows.W%d.bt%d' % (W, tp.qf.shape[0]), tp.L)
+        up = [_upload(a, device) for a in forward_inputs(tp)]
+        score, end_i, end_j, moves, (c_rel, jr_rows) = tape_forward(
+            *up, scoring=scoring, config=config, W=W, need_moves=need_cigar)
+        outs = [score, end_i, end_j]
+        if need_cigar:
+            seg_start, n_t = up[8], up[6]
+            valid = n_t > 0
+            zero = torch.zeros_like(end_i)
+            records, fin = tape_traceback(
+                moves, c_rel, jr_rows, _upload(tp.n_tasks, device),
+                torch.where(valid, seg_start + end_i, zero),
+                torch.where(valid, end_j, zero),
+                torch.where(valid, seg_start, zero), W)
+            outs += [records, fin]
+        pending.append((tp, outs))
+    return pending
+
+
 def _tape_collect(pending):
     """Copy a pending list's outputs to the host."""
     from ..utils import trace
@@ -368,13 +412,15 @@ def _tape_collect(pending):
 
 
 def _tape_decode(results, live, pending, grouped, need_cigar, config):
-    """Decode fetched wave-tape outputs into PairAlignments; returns the
-    task indices needing the band-escape retry path."""
+    """Decode fetched tape outputs (wave or row tapes) into PairAlignments;
+    returns the task indices needing the band-escape retry path."""
+    from .tape_kernels import records_to_cigar
     from .wavetape_kernels import wave_records_to_cigar
     from ..utils import trace
     retry = []
     with trace.span('tape_decode'):
         for (tp, _), parts in zip(pending, grouped):
+            is_wave = hasattr(tp, 'abase')
             score, end_i, end_j = parts[0], parts[1], parts[2]
             if need_cigar:
                 records, fin = parts[3], parts[4]
@@ -385,7 +431,8 @@ def _tape_decode(results, live, pending, grouped, need_cigar, config):
                     n_act = int(tp.n_t[tr, kk])
                     m_act = int(tp.m_t[tr, kk])
                     if sc <= NEG // 2:
-                        if not (config.free_end_s1 or config.free_end_s2):
+                        if is_wave and not (config.free_end_s1
+                                            or config.free_end_s2):
                             # No-free-end configs must reach the corner; the
                             # group-quantized window can clip it on a
                             # drifting corridor where the per-row corridor
@@ -404,10 +451,16 @@ def _tape_decode(results, live, pending, grouped, need_cigar, config):
                             s2_end=ej, cigar=[], s1_len=n_act,
                             s2_len=m_act)
                         continue
-                    decoded = wave_records_to_cigar(
-                        records[tr], int(tp.abase[tr, kk]), ei, ej,
-                        fin[tr, kk, 0], fin[tr, kk, 1], fin[tr, kk, 2],
-                        config)
+                    if is_wave:
+                        decoded = wave_records_to_cigar(
+                            records[tr], int(tp.abase[tr, kk]), ei, ej,
+                            fin[tr, kk, 0], fin[tr, kk, 1], fin[tr, kk, 2],
+                            config)
+                    else:
+                        ss = int(tp.seg_start[tr, kk])
+                        decoded = records_to_cigar(
+                            records[tr, ss:ss + ei], ei, fin[tr, kk, 0],
+                            fin[tr, kk, 1], fin[tr, kk, 2], config)
                     if decoded is None:
                         retry.append(gi)
                         continue
@@ -420,19 +473,11 @@ def _tape_decode(results, live, pending, grouped, need_cigar, config):
     return retry
 
 
-def _check_wave_width(W):
-    if W > WAVE_MAX_W:
-        raise NotImplementedError(
-            'band width W=%d > %d needs the row-tape kernels '
-            '(unicycler_tpu/ops/pallas_tape.py: _make_tape_kernel, '
-            '_make_tape_kernel_rolled, _make_tape_traceback_kernel), which '
-            'are not ported yet' % (W, WAVE_MAX_W))
-
-
 def align_banded_tape(tasks, scoring, config, W, need_cigar, device=None):
-    """Tape path: every task of the call rides wavefront-tape launches
-    with the traceback walked on the device (on the CPU, the kernels'
-    plain versions), then band-escape retries on the banded kernel."""
+    """Tape path: every task of the call rides tape launches (wavefront
+    tapes for W <= 2048, row tapes above) with the traceback walked on the
+    device (on the CPU, the kernels' plain versions), then band-escape
+    retries on the banded kernel."""
     return _AsyncAlign(tasks, scoring, config, W, need_cigar,
                        resolve_device(device)).collect()
 
@@ -444,12 +489,12 @@ class _AsyncAlign(object):
     seeding of the NEXT batch with device compute of this one."""
 
     def __init__(self, tasks, scoring, config, W, need_cigar, device):
-        _check_wave_width(W)
         self._args = (scoring, config, W, need_cigar, device)
         self._tasks = tasks
         self._results = [None] * len(tasks)
         self._live = _filter_degenerate(tasks, self._results)
-        self._pending = _wavetape_dispatch(
+        dispatch = _wavetape_dispatch if use_wavetape(W) else _tape_dispatch
+        self._pending = dispatch(
             [tasks[i] for i in self._live], scoring, config, W, need_cigar,
             device) if self._live else []
         self._done = not self._pending

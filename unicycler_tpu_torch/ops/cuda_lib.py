@@ -26,12 +26,14 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_ROOT = os.path.join(_PKG_DIR, '_build')
-SOURCES = ('wavetape_fwd.cu', 'wavetape_walk.cu', 'banded.cu')
+SOURCES = ('wavetape_fwd.cu', 'wavetape_walk.cu', 'banded.cu', 'tape_fwd.cu',
+           'tape_walk.cu')
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ARCH_FLAGS + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v', '-lineinfo']
 
-LAUNCHES = {'wavetape_fwd': 0, 'wavetape_walk': 0, 'banded': 0}
+LAUNCHES = {'wavetape_fwd': 0, 'wavetape_walk': 0, 'banded': 0,
+            'tape_fwd': 0, 'tape_walk': 0}
 
 TIMINGS = None
 
@@ -129,6 +131,14 @@ _SIGNATURES = {
     # B, W, match, mismatch, open, ext, fs1, fs2, fe1, fe2, stream
     'banded_launch': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # rowinfo, gplane, r_flat, M, moves, hatn, best, B, L, W, GWp,
+    # match, mismatch, open, ext, free_start_s1, free_start_s2, stream
+    'tape_fwd_launch': [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P],
+    # moves, c_rel, jr_rows, n_tasks, end_abs, end_j, seg_start, records,
+    # fin, B, L, GWp, W, TT, stream
+    'tape_walk_launch': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,10 +1,13 @@
 """Host half of the pairwise affine-gap (Gotoh) alignment module.
 
-A copy of the jax-free part of unicycler_tpu/ops/pairwise.py: the NEG
-sentinel and move codes shared by every DP kernel, the free-end-gap
-AlignConfig, the Scoring tuple, the RunCigar/PairAlignment result types and
-the host full-matrix traceback decoder. The device full-matrix DP
-(_align_single, align_batch_device, align_pairs) is not ported yet.
+Counterpart of unicycler_tpu/ops/pairwise.py: the NEG sentinel and move
+codes shared by every DP kernel, the free-end-gap AlignConfig, the Scoring
+tuple, the RunCigar/PairAlignment result types, the full-matrix DP
+(align_batch_device, the batched twin of the JAX _align_single) and its
+host API align_pairs with the host traceback decoder. The JAX package runs
+this DP as plain XLA (a lax.scan over rows), so the port runs it as plain
+torch ops: the batch is vectorised, the rows are a Python loop, and E is a
+torch.cummax over columns.
 
 Scoring convention (matches SeqAn Score<int,Simple>(match, mismatch, ext,
 open) used throughout the reference): a gap of length L costs
@@ -14,6 +17,7 @@ open + (L-1)*ext, with scores as (possibly negative) integers.
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 NEG = -(2 ** 30)
 NEG_BAND = 2 ** 28          # 'unbanded' diagonal bound sentinel
@@ -58,6 +62,106 @@ class Scoring(NamedTuple):
 
 
 DEFAULT_SCORING = Scoring(3, -6, -5, -2)
+
+
+def align_batch_device(q_batch, q_lens, r_batch, r_lens, scoring: Scoring,
+                       config: AlignConfig, need_moves: bool,
+                       lower_diags=None, upper_diags=None):
+    """Full-matrix Gotoh DP over a padded batch, on the tensors' device.
+    q_batch (B, n_pad), r_batch (B, m_pad) int8; q_lens, r_lens (B,).
+    Cells outside the diagonal band lower <= (i - j) <= upper are masked
+    out (SeqAn banded-globalAlignment semantics; None = unbanded). Returns
+    (score, end_i, end_j) (B,) int32 and moves (B, n_pad, m_pad + 1)
+    uint8 (None without need_moves)."""
+    match_s, mismatch = int(scoring.match), int(scoring.mismatch)
+    open_, ext = int(scoring.gap_open), int(scoring.gap_extend)
+    assert open_ <= ext, 'prefix-scan Gotoh requires gap_open <= gap_extend'
+    B, n_pad = q_batch.shape
+    m_pad = r_batch.shape[1]
+    m1 = m_pad + 1
+    dev = q_batch.device
+    i32 = torch.int32
+    q = q_batch.to(i32)
+    r = r_batch.to(i32)
+    n_act = q_lens.to(torch.int64)[:, None]
+    m_act = r_lens.to(torch.int64)[:, None]
+    lower = torch.full((B, 1), -NEG_BAND, dtype=i32, device=dev) \
+        if lower_diags is None else lower_diags.to(i32)[:, None]
+    upper = torch.full((B, 1), NEG_BAND, dtype=i32, device=dev) \
+        if upper_diags is None else upper_diags.to(i32)[:, None]
+    js = torch.arange(m1, dtype=i32, device=dev)[None, :]
+    neg1 = torch.full((B, 1), NEG, dtype=i32, device=dev)
+
+    # row 0 boundary
+    if config.free_start_s2:
+        h0 = torch.zeros((B, m1), dtype=i32, device=dev)
+    else:
+        h0 = torch.where(js > 0, open_ + (js - 1) * ext, 0).to(i32) \
+            .expand(B, m1)
+    h0 = torch.where((-js >= lower) & (-js <= upper), h0, NEG)
+    h = h0
+    f = torch.full((B, m1), NEG, dtype=i32, device=dev)
+    h_at_n = torch.where(n_act == 0, h0, NEG)
+    moves = torch.empty((B, n_pad, m1), dtype=torch.uint8, device=dev) \
+        if need_moves else None
+    lastcol = torch.empty((B, n_pad), dtype=i32, device=dev)
+    for i in range(1, n_pad + 1):
+        f_ext = f + ext
+        f_new = torch.maximum(h + open_, f_ext)
+        f_ext_bit = (f_new == f_ext) & (f > NEG // 2)
+        sub = torch.where(q[:, i - 1:i] == r, match_s, mismatch).to(i32)
+        hb = 0 if config.free_start_s1 else open_ + (i - 1) * ext
+        hb_col = torch.full((B, 1), hb, dtype=i32, device=dev)
+        diag_full = torch.cat([hb_col, h[:, :-1] + sub], 1)
+        g = torch.cat([hb_col, torch.maximum(diag_full[:, 1:],
+                                             f_new[:, 1:])], 1)
+        c = g + open_ - (js + 1) * ext
+        cmax = torch.cummax(c, 1).values
+        e = torch.cat([neg1, cmax[:, :-1]], 1) + js * ext
+        e[:, 0] = NEG
+        hn = torch.maximum(g, e)
+        hn[:, 0] = hb
+        d = i - js
+        in_band = (d >= lower) & (d <= upper)
+        hn = torch.where(in_band, hn, NEG)
+        e = torch.where(in_band, e, NEG)
+        f_new = torch.where(in_band, f_new, NEG)
+        e_prev = torch.cat([neg1, e[:, :-1]], 1)
+        e_ext_bit = (e == e_prev + ext) & (e_prev > NEG // 2)
+        if need_moves:
+            hsrc = torch.where(hn == diag_full, DIAG,
+                               torch.where(hn == e, E_SRC, F_SRC))
+            moves[:, i - 1] = (hsrc | (e_ext_bit.to(torch.int64) << 2)
+                               | (f_ext_bit.to(torch.int64) << 3)).to(
+                                   torch.uint8)
+        h_at_n = torch.where(n_act == i, hn, h_at_n)
+        lastcol[:, i - 1] = torch.gather(hn, 1, m_act)[:, 0]
+        h, f = hn, f_new
+
+    # end-cell selection, in the JAX package's tie order
+    corner = torch.gather(h_at_n, 1, m_act)[:, 0]
+    score = corner
+    end_i = n_act[:, 0].to(i32)
+    end_j = m_act[:, 0].to(i32)
+    if config.free_end_s2:
+        row_vals = torch.where(js <= m_act, h_at_n, NEG)
+        j_best = torch.argmax(row_vals, 1)
+        s = torch.gather(row_vals, 1, j_best[:, None])[:, 0]
+        better = s > score
+        end_j = torch.where(better, j_best.to(i32), end_j)
+        end_i = torch.where(better, n_act[:, 0].to(i32), end_i)
+        score = torch.maximum(score, s)
+    if config.free_end_s1:
+        is_ = torch.arange(1, n_pad + 1, dtype=torch.int64, device=dev)
+        col_vals = torch.where(is_[None, :] <= n_act, lastcol, NEG)
+        col_vals = torch.cat([torch.gather(h0, 1, m_act), col_vals], 1)
+        i_best = torch.argmax(col_vals, 1)
+        s = torch.gather(col_vals, 1, i_best[:, None])[:, 0]
+        better = s > score
+        end_i = torch.where(better, i_best.to(i32), end_i)
+        end_j = torch.where(better, m_act[:, 0].to(i32), end_j)
+        score = torch.maximum(score, s)
+    return score.to(i32), end_i, end_j, moves
 
 
 # ---------------------------------------------------------------------------
@@ -203,3 +307,54 @@ def decode_traceback(moves: np.ndarray, end_i: int, end_j: int,
     cigar = [(c, op) for c, op in reversed(ops)]
     return cigar, i, j
 
+
+
+def align_pairs(q_list, r_list, scoring=DEFAULT_SCORING, config=SEMI_GLOBAL,
+                need_cigar=True, band=None, device=None):
+    """Host API: align code-array pairs on `device` (default CUDA), return
+    PairAlignments.
+
+    All pairs are padded into one rectangular batch (callers should bucket
+    by length for efficiency). When `band` is given, the DP is restricted
+    to the SeqAn-style diagonal band expanded by the length difference
+    (ref global_align.cpp:56-75): lower = -band - max(0, m-n),
+    upper = band + max(0, n-m).
+    """
+    from ..device import resolve_device
+    from .encode import pack_pairs
+    if not q_list:
+        return []
+    dev = resolve_device(device)
+    # the JAX package pads to length buckets; rows and columns past the
+    # longest pair cannot change any output, so the DP stops there
+    q_batch, q_lens, r_batch, r_lens = pack_pairs(
+        q_list, r_list, max(max(len(q) for q in q_list), 1),
+        max(max(len(r) for r in r_list), 1))
+    if band is not None:
+        diffs = r_lens.astype(np.int64) - q_lens.astype(np.int64)
+        lower = (-band - np.maximum(0, diffs)).astype(np.int32)
+        upper = (band + np.maximum(0, -diffs)).astype(np.int32)
+        lower, upper = (torch.from_numpy(x).to(dev) for x in (lower, upper))
+    else:
+        lower = upper = None
+    score, end_i, end_j, moves = align_batch_device(
+        *(torch.from_numpy(x).to(dev)
+          for x in (q_batch, q_lens, r_batch, r_lens)),
+        scoring, config, need_cigar, lower, upper)
+    score = score.cpu().numpy()
+    end_i = end_i.cpu().numpy()
+    end_j = end_j.cpu().numpy()
+    if need_cigar:
+        moves = moves.cpu().numpy()
+    results = []
+    for b in range(len(q_list)):
+        if need_cigar:
+            cigar, si, sj = decode_traceback(moves[b], end_i[b], end_j[b],
+                                             config)
+        else:
+            cigar, si, sj = [], 0, 0
+        results.append(PairAlignment(
+            score=int(score[b]), s1_start=si, s1_end=int(end_i[b]),
+            s2_start=sj, s2_end=int(end_j[b]), cigar=cigar,
+            s1_len=int(q_lens[b]), s2_len=int(r_lens[b])))
+    return results

@@ -1,4 +1,4 @@
-"""Tuning constants of the alignment path (copied from
+"""Tuning constants of the alignment and bridging paths (copied from
 unicycler_tpu/settings.py; the port keeps only the constants its modules
 read, numerically identical, since they shape the pipeline's decisions).
 """
@@ -32,3 +32,26 @@ FINE_ANCHOR_MAX_OCC = 256                 # per-kmer occurrence cap
 MAX_LINE_TRACE_COUNTS = (4, 8, 12, 16)    # candidate corridor cap
 
 BASES_PER_FASTA_LINE = 70
+
+# Full-matrix DP is used below this cell count; banded DP above it
+# (ops/dispatch.batch_align).
+MAX_FULL_DP_CELLS = 1 << 24
+
+# Path finding (ref settings.py:74-90)
+MIN_RELATIVE_PATH_LENGTH = 0.9
+MAX_RELATIVE_PATH_LENGTH = 1.1
+RELATIVE_PATH_LENGTH_BUFFER_SIZE = 100
+ALL_PATH_SEARCH_MAX_WORKING_PATHS = 10000
+ALL_PATH_SEARCH_MAX_FINAL_PATHS = 500
+PROGRESSIVE_PATH_SEARCH_MAX_WORKING_PATHS = 100
+PROGRESSIVE_PATH_SEARCH_SCORE_FRACTION = 0.995
+
+# Long-read bridging (ref settings.py:113-176)
+MAX_READS_FOR_CONSENSUS = 25
+PATHLESS_BRIDGE_QUAL_TWO_DEAD_ENDS = 1.0
+PATHLESS_BRIDGE_QUAL_ONE_DEAD_END = 0.7
+PATHLESS_BRIDGE_QUAL_NO_DEAD_ENDS = 0.2
+PATHLESS_BRIDGE_QUAL_TWO_DEAD_ENDS_WITH_LINEAR_SEQS = 0.6
+PATHLESS_BRIDGE_QUAL_ONE_DEAD_END_WITH_LINEAR_SEQS = 0.4
+PATHLESS_BRIDGE_QUAL_NO_DEAD_ENDS_WITH_LINEAR_SEQS = 0.2
+LONG_READ_BRIDGE_HALF_QUAL_LENGTH = 2000

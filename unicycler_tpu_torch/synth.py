@@ -98,3 +98,100 @@ def banded_tasks(rng, sizes, drift=False, sub=0.06, ins=0.02, dele=0.02):
             cf = [off, off + n]
         out.append((q, ref, np.array(cr, np.int32), np.array(cf, np.int32)))
     return out
+
+
+class RepeatCopy(NamedTuple):
+    family: int        # index into the family list
+    long_allele: bool  # the copy carries the family's indel insert
+    left: int          # number of the unique segment before the copy
+    right: int         # number of the unique segment after it
+    start: int         # the copy's span [start, end) in the chromosome
+    end: int
+    path: tuple        # the copy's true graph path, left to right
+
+
+def repeat_genome(rng, unique_lens, families):
+    """A chromosome of unique stretches with repeat copies planted between
+    them, and its collapsed overlap-0 assembly graph.
+
+    families: [(repeat length, number of copies, indel)]. With indel > 0
+    the repeat is A + X + B with X an `indel`-bp insert that about half of
+    the family's copies carry (a length-variant bubble in the graph: links
+    A -> X -> B and A -> B); with indel 0 it is one segment R. The copies
+    go, in a shuffled order, between consecutive unique stretches, so
+    len(unique_lens) must be one more than the number of copies. Unique
+    stretch i is segment i + 1 (depth 1); repeat segments follow, with the
+    copy counts as depths. Returns (chromosome, gfa_text, copies)."""
+    n_copies = sum(f[1] for f in families)
+    assert len(unique_lens) == n_copies + 1
+    uniques = random_replicons(rng, unique_lens)
+    seqs = {n + 1: u for n, u in enumerate(uniques)}
+    depths = {n: 1.0 for n in seqs}
+    links = set()
+    order = []
+    for fi, (length, copies, indel) in enumerate(families):
+        seq = random_replicons(rng, [length])[0]
+        num = len(seqs) + 1
+        if indel:
+            a_len = (length - indel) // 2
+            parts = (seq[:a_len], seq[a_len:a_len + indel],
+                     seq[a_len + indel:])
+            a, x, b = num, num + 1, num + 2
+            links.update([(a, x), (x, b), (a, b)])
+            n_long = copies // 2 + (copies % 2) * int(rng.integers(0, 2))
+            alleles = [True] * n_long + [False] * (copies - n_long)
+            rng.shuffle(alleles)
+            order += [(fi, (a, x, b) if long_ else (a, b))
+                      for long_ in alleles]
+            depths.update({a: float(copies), x: float(n_long),
+                           b: float(copies)})
+        else:
+            parts = (seq,)
+            order += [(fi, (num,))] * copies
+            depths[num] = float(copies)
+        for k, part in enumerate(parts):
+            seqs[num + k] = part
+    order = [order[k] for k in rng.permutation(len(order))]
+
+    chrom, copies_out = [uniques[0]], []
+    pos = len(uniques[0])
+    for i, (fi, path) in enumerate(order):
+        copy = ''.join(seqs[n] for n in path)
+        copies_out.append(RepeatCopy(fi, len(path) == 3, i + 1, i + 2, pos,
+                                     pos + len(copy), path))
+        chrom += [copy, uniques[i + 1]]
+        pos += len(copy) + len(uniques[i + 1])
+        links.update([(i + 1, path[0]), (path[-1], i + 2)])
+    lines = ['S\t%d\t%s\tDP:f:%.1f\n' % (n, seqs[n], depths[n])
+             for n in sorted(seqs)]
+    lines += ['L\t%d\t+\t%d\t+\t0M\n' % (s, e) for s, e in sorted(links)]
+    return ''.join(chrom), ''.join(lines), copies_out
+
+
+def reads_around(rng, chrom, copies, per_copy, n50=15000, min_flank=600,
+                 max_len=60000, sub=0.04, ins=0.02, dele=0.02, sigma=0.6):
+    """`per_copy` long reads spanning each repeat copy, with at least
+    `min_flank` bases of unique sequence on both sides, random strands,
+    log-normal lengths of N50 ~ n50 (the simulate_reads model, clipped to
+    [span + 2 * min_flank, max_len] and to the chromosome) and the same
+    error model. Returns
+    [(name, sequence, copy index)]."""
+    lut = np.zeros(256, np.int8)
+    lut[_BASES] = np.arange(4)
+    codes = lut[np.frombuffer(chrom.encode(), np.uint8)]
+    mu = np.log(n50) - sigma ** 2
+    reads = []
+    for ci, cp in enumerate(copies):
+        for k in range(per_copy):
+            need = cp.end - cp.start + 2 * min_flank
+            length = int(np.clip(rng.lognormal(mu, sigma), need,
+                                 max(need, min(max_len, len(chrom)))))
+            lo = max(0, cp.end + min_flank - length)
+            hi = min(cp.start - min_flank, len(chrom) - length)
+            start = int(rng.integers(lo, hi + 1))
+            piece = codes[start:start + length]
+            if rng.integers(0, 2):
+                piece = _COMP[piece[::-1]]
+            reads.append(('copy%d_read%d' % (ci, k),
+                          _to_str(_mutate(rng, piece, sub, ins, dele)), ci))
+    return reads
