@@ -16,8 +16,15 @@ Phases (every failed check raises, so the exit code is nonzero):
      plasmid with 200 long reads (N50 ~15 kb, ~8% errors) at sensitivity 0
      plus 20 reads at sensitivity 2; checks true placement and that every
      CIGAR re-tallies to its raw score; counts kernel launches;
-  5. the retry path: _align_banded_moves_path on the card against the CPU
-     route, counting the banded kernel's launches;
+  5. the retry path: _align_banded_moves_path on the card (the banded
+     kernel, its moves walked on the card) against the host-decode route
+     and the CPU route; the walker against its plain version at W = 512,
+     1024 and 2048; align_banded on FULLY_GLOBAL tasks with zigzag
+     corridors, which the wave route's group windows find no path in and
+     retry inside the call (all four kernels of the route), against the
+     host-decode retry path, with the walked CIGARs re-tallied and the
+     walker held to its plain version at the call's width; bytes copied
+     back by both retry routes;
   6. row-tape kernels: the forward kernel and walker of bands W > 2048
      against their plain versions at W = 4096 and 8192 (8 and 32 tracks),
      shortened tasks, bit-equal, CUDA-event times; and the full-matrix DP
@@ -31,7 +38,25 @@ Phases (every failed check raises, so the exit code is nonzero):
      bridges take the true allele's path, that every CIGAR of consensus and
      path scoring re-tallies to its score, and that the row-tape kernels
      and the full-matrix DP ran;
-  8. summary: one {"kernels": [...]} line, then the card's line.
+  9. the per-task wavefront forward (wavefront_batch_corridor) at the
+     shapes of scripts/wavefront_microbench.py (8 tasks of 2,048 rows, W =
+     512 and 1024, drift 0 and 4 per 16 rows): bit-equal to its plain
+     version, (score, end_i, end_j) equal to the wave route's; us per DP
+     row beside the wave forward's;
+ 10. long-read-only assembly: make_miniasm_string_graph with no short-read
+     graph on a 2 Mbp + 100 kbp genome (both circular) with reads at 15x
+     (ASSEMBLY_CHROMOSOME, ASSEMBLY_DEPTH: the slice's 5 Mbp at 20x cut to
+     the time limit): all-vs-all overlaps, OLC string graph, unitigs, up
+     to 5 polish rounds on the card; checks that every polish CIGAR
+     re-tallies, that the unitigs (cut into 10 kb pieces and aligned by
+     align_reads_to_refs) align to the truth at >= 99% identity over
+     >= 90% of the genome, every piece aligned and at most 10% of them
+     under 99%, and that the best polish round's mapping
+     quality is above round 0's (polish_unitigs keeps the best round);
+     lists the pieces under 99% and saves the unitigs to
+     chiprun_out/assembly.gfa;
+  8. summary (printed last): one {"kernels": [...]} line with all seven
+     kernels, then the card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
 without the package beside this script. Details go to
@@ -58,9 +83,20 @@ OPS_PER_CELL_WAVE = 45
 OPS_PER_STEP_WALK = 30
 OPS_PER_CELL_BANDED = 45
 OPS_PER_CELL_ROW = 45
+# the per-task wavefront forward's inner loop: F, E (with its clamp), the
+# substitution, the row / column masks, diagonal, boundary cells, H and
+# the row-n / column-m captures
+OPS_PER_CELL_WAVEFRONT = 40
 # bytes a row-tape walker step reads: the row's band offset, region base
 # and moves word
 BYTES_PER_STEP_ROW_WALK = 12
+# bytes a banded walker step reads: the moves word and the band offset
+BYTES_PER_STEP_BANDED_WALK = 8
+# the assembly phase's scale: 20x over a 5 Mbp chromosome, cut in depth
+# and then in length to keep the run inside its time limit (PERF.md
+# section 4)
+ASSEMBLY_DEPTH = 15.0
+ASSEMBLY_CHROMOSOME = 2_000_000
 
 
 def log(msg=''):
@@ -152,6 +188,14 @@ def tape_walk_cost(records, fin):
     return nbytes, steps * OPS_PER_STEP_WALK, steps
 
 
+def banded_cost(q, r_ext, c, moves):
+    """(bytes, ops, cells) of one banded launch with moves: the inputs
+    and the moves once; B * n_pad * W cells at OPS_PER_CELL_BANDED."""
+    cells = q.numel() * moves.shape[2] * 8
+    nbytes = sum(x.numel() * x.element_size() for x in (q, r_ext, c, moves))
+    return nbytes, cells * OPS_PER_CELL_BANDED, cells
+
+
 def kernel_costs(timings):
     """Device time, bytes, operations, work (cells of a forward kernel,
     steps of a walker) and bound per kernel over a run's timed launches
@@ -159,7 +203,8 @@ def kernel_costs(timings):
     from unicycler_tpu_torch.ops.tape import MAX_SHIFT
     from unicycler_tpu_torch.ops.tape_kernels import G
     costs = {'wavetape_fwd': wave_fwd_cost, 'wavetape_walk': wave_walk_cost,
-             'tape_walk': tape_walk_cost,
+             'tape_walk': tape_walk_cost, 'banded': banded_cost,
+             'banded_walk': banded_walk_cost,
              # the row region frame is the band plus the in-group drift
              'tape_fwd': lambda *o: tape_fwd_cost(
                  *o, o[4].shape[-1] - G * MAX_SHIFT)}
@@ -168,7 +213,7 @@ def kernel_costs(timings):
         agg = totals.setdefault(name, {'ms': 0.0, 'bytes': 0, 'ops': 0,
                                        'work': 0})
         agg['ms'] += ev0.elapsed_time(ev1)
-        if name in costs:
+        if name in costs and all(x is not None for x in outs):
             nbytes, ops, work = costs[name](*outs)
             agg['bytes'] += nbytes
             agg['ops'] += ops
@@ -465,13 +510,43 @@ def phase_small_reference(dev):
         % len(tasks))
 
 
-def phase_retry(args, dev, report):
+def banded_walk_cost(records, final):
+    """(bytes, ops, steps) of one banded walk: 4 B of moves word and 4 B of
+    band offset read a step, one record written per visited row."""
+    steps = row_walk_steps(records)
+    nbytes = steps * BYTES_PER_STEP_BANDED_WALK \
+        + int((records != 0).sum()) * 4 + final.numel() * 4
+    return nbytes, steps * OPS_PER_STEP_WALK, steps
+
+
+def retry_counters(fn):
+    """Run fn with tracing on; returns (its result, the trace counters)."""
+    from unicycler_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    return out, trace.as_dict()['counters']
+
+
+def phase_retry(args, dev, results, report):
+    """The band-escape retry path: the banded kernel (3) with the walk on
+    the card (6) against the host-decode route and the CPU route; kernel
+    6 against its plain version; align_banded on FULLY_GLOBAL tasks with
+    zigzag corridors, which retry inside the call."""
+    import functools
     import torch
     import numpy as np
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
     from unicycler_tpu_torch.ops import cuda_lib
-    from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
+    from unicycler_tpu_torch.ops import traceback_kernels as tbk
+    from unicycler_tpu_torch.ops.encode import bucket_length
+    from unicycler_tpu_torch.ops.pairwise import (FULLY_GLOBAL, SEMI_GLOBAL,
+                                                  Scoring)
 
     log('== phase 5: retry path (_align_banded_moves_path)')
     rng = np.random.default_rng(args.seed + 1)
@@ -479,26 +554,141 @@ def phase_retry(args, dev, report):
              synth.banded_tasks(rng, [3000, 2600, 3400, 1800, 2200, 3100,
                                       900, 2900], drift=True)]
     scoring = Scoring(3, -6, -5, -2)
+    retry = lambda **kw: bo._align_banded_moves_path(
+        tasks, scoring, SEMI_GLOBAL, 512, True, **kw)
     cuda_lib.reset_launches()
     t0 = time.time()
-    got = bo._align_banded_moves_path(tasks, scoring, SEMI_GLOBAL, 512,
-                                      True, device=dev)
+    got, walk_ctr = retry_counters(lambda: retry(device=dev))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = cuda_lib.LAUNCHES['banded']
-    want = bo._align_banded_moves_path(tasks, scoring, SEMI_GLOBAL, 512,
-                                       True, device='cpu')
-    for g, w in zip(got, want):
-        if g != w:
-            raise AssertionError('retry path differs from the CPU route')
-    log('retry path: %d tasks, %d banded launches, %.2f s, equal to the '
-        'CPU route' % (len(tasks), launches, wall))
-    if launches <= 0:
-        raise AssertionError('the retry path did not launch the banded '
-                             'kernel')
-    report['retry'] = {'tasks': len(tasks), 'launches': launches,
-                       'wall_s': wall}
-    return launches
+    launches = {k: cuda_lib.LAUNCHES[k] for k in ('banded', 'banded_walk')}
+    host, host_ctr = retry_counters(lambda: retry(device=dev,
+                                                  device_walk=False))
+    want = retry(device='cpu')
+    for g, h, w in zip(got, host, want):
+        if not g == h == w:
+            raise AssertionError('retry path differs between the device '
+                                 'walk, the host decode and the CPU route')
+    bad = sum(retally(t.q, t.r, pa, scoring) != pa.score
+              for t, pa in zip(tasks, got) if pa.cigar)
+    log('retry path: %d tasks, launches %s, %.2f s, equal to the host-decode '
+        'route and the CPU route; %d CIGARs, %d off their score; bytes '
+        'copied back: %d with the walk on the card, %d with the host decode'
+        % (len(tasks), json.dumps(launches), wall,
+           sum(1 for p in got if p.cigar), bad,
+           walk_ctr['retry.fetch_bytes'], host_ctr['retry.fetch_bytes']))
+    if bad:
+        raise AssertionError('%d retry CIGARs do not re-tally' % bad)
+    if min(launches.values()) <= 0 or walk_ctr['retry.device_walk'] <= 0:
+        raise AssertionError('the retry path did not launch kernels 3 and 6')
+
+    def walk_against_plain(task_list, config, W):
+        """Kernel 6 against its plain version on kernel 3's moves of
+        task_list, packed into one bucket at width W."""
+        n_pad = bucket_length(max(len(t.q) for t in task_list))
+        m_pad = bucket_length(max(len(t.r) for t in task_list))
+        B = -(-len(task_list) // bk.BT) * bk.BT
+        host_in = bo._pack_bucket(task_list, list(range(len(task_list))),
+                                  n_pad, m_pad, W, B)
+        up = [torch.from_numpy(x).to(dev) for x in host_in]
+        _, ei, ej, moves = bk.banded_batch_cuda(*up, scoring, config, W,
+                                                True)
+        crow = up[2][:, 1:].contiguous()
+        walk = lambda: tbk.banded_traceback_cuda(moves, crow, ei, ej, W)
+        walk()
+        ms, (rec_k, fin_k) = cuda_time(walk, reps=3)
+        plain_ms, (rec_p, fin_p) = cuda_time(
+            lambda: tbk.banded_traceback_plain(moves, crow, ei, ej, W))
+        err = max(exact('banded_walk records', rec_k, rec_p),
+                  exact('banded_walk final', fin_k, fin_p))
+        nbytes, ops, steps = banded_walk_cost(rec_k, fin_k)
+        results.append({'name': 'banded_walk', 'W': W, 'bt': B,
+                        'ms': ms, 'plain_ms': plain_ms,
+                        'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
+                        'steps': steps, 'max_abs_err': err})
+        log('W=%4d B=%2d n_pad=%d  banded_walk %.3f ms (plain %.0f ms, %d '
+            'steps)  bit-equal' % (W, B, n_pad, ms, plain_ms, steps))
+
+    # kernel 6 against its plain version on the phase's tasks
+    for W in (512, 1024, 2048):
+        walk_against_plain(tasks, SEMI_GLOBAL, W)
+
+    # align_banded on FULLY_GLOBAL tasks whose corridors zigzag: the wave
+    # route (kernels 1, 2) finds no path inside the group windows of some,
+    # which retry (kernels 3, 6) in the per-row band, where most of them
+    # have a real one; all inside one call
+    grng = np.random.default_rng(args.seed + 5)
+    gtasks = [bo.BandedTask(*t) for t in synth.zigzag_tasks(
+        grng, [int(x) for x in grng.integers(300, 1500, 24)])]
+    band = 40
+    call = lambda: bo.align_banded(gtasks, scoring, FULLY_GLOBAL, band,
+                                   True, device=dev)
+    inner = bo._align_banded_moves_path
+    retried = []
+
+    def observed(task_list, *a, **kw):
+        out = inner(task_list, *a, **kw)
+        retried.extend(zip(task_list, out))
+        return out
+
+    bo._align_banded_moves_path = observed
+    cuda_lib.reset_launches()
+    try:
+        gwalk, gctr = retry_counters(call)
+        torch.cuda.synchronize()
+        glaunch = dict(cuda_lib.LAUNCHES)
+        bo._align_banded_moves_path = functools.partial(inner,
+                                                        device_walk=False)
+        ghost, ghctr = retry_counters(call)
+    finally:
+        bo._align_banded_moves_path = inner
+    if gwalk != ghost:
+        raise AssertionError('align_banded with the walk on the card '
+                             'differs from the host-decode retry path')
+    gbad = sum(retally(t.q, t.r, pa, scoring) != pa.score
+               for t, pa in zip(gtasks, gwalk) if pa.cigar)
+    walked = sum(1 for _, pa in retried if pa.cigar)
+    used = ('wavetape_fwd', 'wavetape_walk', 'banded', 'banded_walk')
+    log('align_banded (FULLY_GLOBAL, zigzag corridors, band %d, W %d): %d '
+        'tasks, %d retried, retry.device_walk %d (%d left to the host '
+        'traceback), launches %s; equal to the host-decode retry path; %d '
+        'CIGARs (%d of them from walks on the card), %d off their score; '
+        'retry bytes copied back: %d with the walk on the card, %d with the '
+        'host decode'
+        % (band, bo.band_width(band), len(gtasks), gctr.get('tape.retry', 0),
+           gctr.get('retry.device_walk', 0),
+           gctr.get('retry.host_decode', 0),
+           json.dumps({k: glaunch[k] for k in used}),
+           sum(1 for p in gwalk if p.cigar), walked, gbad,
+           gctr.get('retry.fetch_bytes', 0),
+           ghctr.get('retry.fetch_bytes', 0)))
+    if gbad:
+        raise AssertionError('%d CIGARs do not re-tally' % gbad)
+    if gctr.get('retry.device_walk', 0) <= 0 \
+            or min(glaunch[k] for k in used) <= 0:
+        raise AssertionError('align_banded did not run kernels 1, 2, 3 and '
+                             '6 with the walk on the card')
+    if walked <= 0:
+        raise AssertionError('no retried task of align_banded was walked '
+                             'into a CIGAR')
+    # kernel 6 against its plain version at the call's own width, on the
+    # tasks the call retried
+    walk_against_plain([t for t, _ in retried], FULLY_GLOBAL,
+                       bo.band_width(band))
+    report['retry'] = {
+        'tasks': len(tasks), 'launches': launches, 'wall_s': wall,
+        'fetch_bytes_walk': walk_ctr['retry.fetch_bytes'],
+        'fetch_bytes_host': host_ctr['retry.fetch_bytes'],
+        'align_banded': {'tasks': len(gtasks),
+                         'retried': gctr.get('tape.retry', 0),
+                         'device_walk': gctr.get('retry.device_walk', 0),
+                         'host_decode': gctr.get('retry.host_decode', 0),
+                         'walked_cigars': walked,
+                         'launches': {k: glaunch[k] for k in used},
+                         'fetch_bytes_walk': gctr.get('retry.fetch_bytes', 0),
+                         'fetch_bytes_host': ghctr.get('retry.fetch_bytes',
+                                                       0)}}
+    return {k: glaunch[k] for k in ('banded', 'banded_walk')}
 
 
 def sync(dev):
@@ -771,6 +961,320 @@ def phase_bridging(args, dev, report, workload=None):
     return launches, per_kernel, widths
 
 
+def microbench_tasks(n, W, drift, B=8, seed=0):
+    """The tasks of scripts/wavefront_microbench.py: B reads of n bases
+    planted at 90% identity W/2 diagonals into their references, with
+    per-row band starts c[i] = i + drift * i // 16. Returns (q, r, c_rows,
+    n_acts, m_acts) and the same tasks as BandedTasks whose anchors make
+    build_corridor give exactly c_rows."""
+    import numpy as np
+    from unicycler_tpu_torch.ops import banded as bo
+    rng = np.random.RandomState(seed)
+    m = n + W + (drift * n) // 16 + 16
+    q = rng.randint(0, 4, (B, n)).astype(np.int8)
+    r = rng.randint(0, 4, (B, m)).astype(np.int8)
+    r[:, W // 2:W // 2 + n] = np.where(rng.rand(B, n) < 0.9, q,
+                                       r[:, W // 2:W // 2 + n])
+    rows = np.arange(n + 1, dtype=np.int64)
+    c_rows = [rows + (drift * rows) // 16 for _ in range(B)]
+    tasks = [bo.BandedTask(q[b], r[b], rows.astype(np.int32),
+                           (c_rows[b] + W // 2).astype(np.int32))
+             for b in range(B)]
+    for t, c in zip(tasks, c_rows):
+        if not np.array_equal(bo.build_corridor(
+                t.corridor_read, t.corridor_ref, n, m, W), c):
+            raise AssertionError('corridor anchors do not rebuild c_rows')
+    return (q, r, c_rows, np.full(B, n, np.int32), np.full(B, m, np.int32),
+            tasks)
+
+
+def phase_wavefront(dev, results, report):
+    """Kernel 7, the per-task wavefront forward, at the shapes of
+    scripts/wavefront_microbench.py: against its plain version, and its
+    (score, end_i, end_j) against the wave route (kernels 1-2)."""
+    import torch
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import wavefront as wf
+    from unicycler_tpu_torch.ops.pairwise import NEG, SEMI_GLOBAL, Scoring
+
+    log('== phase 9: per-task wavefront forward (wavefront_batch_corridor)')
+    scoring = Scoring(3, -6, -5, -2)
+    n = 2048
+    launches = 0
+    entry_ms = 0.0
+    rows = []
+    for W, drift in ((512, 0), (512, 4), (1024, 0), (1024, 4)):
+        q, r, c_rows, n_acts, m_acts, tasks = microbench_tasks(n, W, drift)
+        B = len(tasks)
+        par, db, zq, zr, a_lo, n_groups, Wcap, GWp, _ = wf._prepare(
+            q, r, c_rows, n_acts, m_acts, W)
+        args = [torch.from_numpy(x).to(dev) for x in (par, db, zq, zr)]
+        kw = dict(W=W, Wcap=Wcap, a_lo=a_lo, scoring=scoring,
+                  config=SEMI_GLOBAL)
+        fwd = lambda: wf.wavefront_forward_cuda(*args, **kw)
+        fwd()
+        ms, out_k = cuda_time(fwd, reps=3)
+        plain_ms, out_p = cuda_time(
+            lambda: wf.wavefront_forward_plain(*args, **kw))
+        err = max(exact('wavefront_fwd ' + nm, a, b) for nm, a, b in
+                  zip(('hatn', 'lcv', 'lci'), out_k, out_p))
+        # the cells the function needs: W band cells a row. The kernel
+        # computes about twice as many lanes (n_groups * G * W a task),
+        # the odd-parity half of which is a shadow DP never read.
+        cells = int(n_acts.sum(dtype='int64')) * W
+        nbytes = sum(x.numel() * x.element_size() for x in args + list(out_k))
+        results.append({'name': 'wavefront_fwd', 'W': W, 'bt': B,
+                        'drift': drift, 'ms': ms, 'plain_ms': plain_ms,
+                        'bound_ms': bound_ms(nbytes,
+                                             cells * OPS_PER_CELL_WAVEFRONT),
+                        'bytes': nbytes, 'cells': cells,
+                        'max_abs_err': err})
+
+        # the entry, counted as this kernel's path, then the wave route
+        cuda_lib.reset_launches()
+        cuda_lib.TIMINGS = []
+        score, ei, ej = wf.wavefront_batch_corridor(
+            q, r, c_rows, n_acts, m_acts, scoring, SEMI_GLOBAL, W,
+            device=dev)
+        launches += cuda_lib.LAUNCHES['wavefront_fwd']
+        entry_ms += sum(e0.elapsed_time(e1) for _, e0, e1, _ in
+                        cuda_lib.TIMINGS)
+        cuda_lib.TIMINGS = []
+        route, ctr = retry_counters(lambda: bo.align_banded_tape(
+            tasks, scoring, SEMI_GLOBAL, W, True, device=dev))
+        torch.cuda.synchronize()
+        timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+        wave_ms = sum(e0.elapsed_time(e1) for nm, e0, e1, _ in timings
+                      if nm == 'wavetape_fwd')
+        if ctr.get('tape.retry', 0):
+            raise AssertionError('the wave route retried %d tasks'
+                                 % ctr['tape.retry'])
+        compared = 0
+        for b, pa in enumerate(route):
+            if int(score[b]) <= NEG // 2:
+                if pa.score != 0 or pa.cigar:
+                    raise AssertionError('task %d: NEG in the wavefront, '
+                                         'not in the wave route' % b)
+                continue
+            if (pa.score, pa.s1_end, pa.s2_end) != (int(score[b]),
+                                                    int(ei[b]), int(ej[b])):
+                raise AssertionError(
+                    'task %d: wavefront (%d, %d, %d) != wave route (%d, %d, '
+                    '%d)' % (b, score[b], ei[b], ej[b], pa.score, pa.s1_end,
+                             pa.s2_end))
+            compared += 1
+        rows.append({'W': W, 'drift': drift, 'ms': ms,
+                     'us_per_row': 1e3 * ms / n,
+                     'wave_fwd_ms': wave_ms,
+                     'wave_us_per_row': 1e3 * wave_ms / n,
+                     'compared': compared})
+        log('W=%4d drift %d/16 B=%d n=%d  wavefront %.3f ms = %.3f us/row '
+            '(plain %.0f ms)  bit-equal; wave forward %.3f ms = %.3f us/row; '
+            '%d/%d ends equal to the wave route'
+            % (W, drift, B, n, ms, 1e3 * ms / n, plain_ms, wave_ms,
+               1e3 * wave_ms / n, compared, B))
+        if compared < B // 2:
+            raise AssertionError('too few tasks compared')
+    if launches <= 0:
+        raise AssertionError('the entry did not launch the wavefront kernel')
+    report['wavefront'] = {'rows': rows, 'launches': launches,
+                           'entry_ms': entry_ms}
+    return launches, entry_ms
+
+
+def assembly_workload(seed, genome=5_000_000, plasmid=100_000, depth=20.0):
+    """Phase 10's workload: a chromosome and a plasmid (both circular)
+    from `seed`, with long reads of the slice's length and error model at
+    `depth`-fold coverage (synth.simulate_read_set)."""
+    import numpy as np
+    from unicycler_tpu_torch import synth
+    rng = np.random.default_rng(seed)
+    reps = synth.random_replicons(rng, [genome, plasmid])
+    return reps, synth.simulate_read_set(rng, reps, depth)
+
+
+def identity_to_truth(graph, reps, dev, chunk=10000):
+    """Cut the unitigs into `chunk`-bp pieces, align them to the truth
+    replicons (each extended by `chunk` bases across its origin) with
+    align_reads_to_refs, and return (identity of the pieces' best
+    alignments, weighted by piece length; fraction of the genome those
+    alignments cover; the pieces under 99% identity, as (piece, identity,
+    replicon, start, end of its alignment on the truth); pieces; pieces
+    aligned)."""
+    import numpy as np
+    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+    from unicycler_tpu_torch.align.semi_global import align_reads_to_refs
+    from unicycler_tpu_torch.io.fastx import Read, Reference
+    pieces = []
+    for name, seg in sorted(graph.segments.items()):
+        seq = seg.forward_sequence
+        for k in range(0, len(seq), chunk):
+            if len(seq) - k >= 1000:
+                pieces.append(Read('%s_%d' % (name, k), seq[k:k + chunk],
+                                   None))
+    refs = [Reference(str(i), s + s[:chunk]) for i, s in enumerate(reps)]
+    align_reads_to_refs(pieces, refs, AlignmentScoringScheme('3,-6,-5,-2'),
+                        low_score_threshold=70.9, device=dev)
+    cover = [np.zeros(len(s), bool) for s in reps]
+    ident = length = aligned = 0
+    low = []
+    for piece in pieces:
+        if not piece.alignments:
+            continue
+        a = max(piece.alignments, key=lambda x: x.raw_score)
+        aligned += 1
+        ident += a.percent_identity * piece.get_length()
+        length += piece.get_length()
+        ri = int(a.ref.name)
+        if a.percent_identity < 99.0:
+            low.append((piece.name, a.percent_identity, ri, a.ref_start_pos,
+                        a.ref_end_pos))
+        cover[ri][np.arange(a.ref_start_pos, a.ref_end_pos)
+                  % len(reps[ri])] = True
+    return (ident / max(length, 1), sum(int(c.sum()) for c in cover)
+            / sum(len(s) for s in reps), low, len(pieces), aligned)
+
+
+def phase_assembly(args, dev, report, workload=None):
+    """The slice: long-read-only assembly (make_miniasm_string_graph with
+    no short-read graph) on the card; checks every polish CIGAR, the
+    polished unitigs against the truth and the polish quality."""
+    import torch
+    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+    from unicycler_tpu_torch.asm import hybrid, polish
+    from unicycler_tpu_torch.io.fastx import Read
+    from unicycler_tpu_torch.ops import banded, cuda_lib
+    from unicycler_tpu_torch.utils import trace
+
+    log('== phase 10: long-read-only assembly (make_miniasm_string_graph '
+        'on %s)' % dev)
+    t0 = time.time()
+    reps, sim = workload or assembly_workload(
+        args.seed + 3, genome=ASSEMBLY_CHROMOSOME, depth=ASSEMBLY_DEPTH)
+    read_dict = {n: Read(n, s, None) for n, s, _ in sim}
+    total = sum(len(s) for _, s, _ in sim)
+    log('genome %s bp (circular), %d reads, %d bp (%.1fx; set-up %.1f s)'
+        % ('+'.join(str(len(s)) for s in reps), len(sim), total,
+           total / sum(len(s) for s in reps), time.time() - t0))
+
+    # observe every polish alignment (re-tallied at once, not kept) and
+    # every round's mapping quality
+    tally = {'checked': 0, 'bad': 0}
+    qualities = []
+    inner_align, inner_round = banded.align_banded, polish.polish_round
+
+    def observed_align(tasks, scoring, config=None, band=25,
+                       need_cigar=True, device=None):
+        out = inner_align(tasks, scoring, config=config, band=band,
+                          need_cigar=need_cigar, device=device)
+        for t, pa in zip(tasks, out):
+            if pa.cigar:
+                tally['checked'] += 1
+                tally['bad'] += retally(t.q, t.r, pa, scoring) != pa.score
+        return out
+
+    def observed_round(*a, **kw):
+        out = inner_round(*a, **kw)
+        qualities.append(out[1])
+        return out
+
+    trace.reset()
+    trace.enable()
+    cuda_lib.TIMINGS = []
+    banded.align_banded, polish.polish_round = observed_align, observed_round
+    sync(dev)
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    try:
+        graph = hybrid.make_miniasm_string_graph(
+            None, read_dict, None, AlignmentScoringScheme('3,-6,-5,-2'),
+            None, None, None, [], device=dev)
+        sync(dev)
+    finally:
+        banded.align_banded, polish.polish_round = inner_align, inner_round
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+    trace.disable()
+    counters = trace.as_dict()['counters']
+    spans = trace.as_dict()['spans']
+    per_kernel = kernel_costs(timings)
+    if graph is None:
+        raise AssertionError('the assembler left no segment')
+
+    lens = sorted((s.get_length() for s in graph.segments.values()),
+                  reverse=True)
+    acc, n50 = 0, 0
+    for length in lens:
+        acc += length
+        if acc >= sum(lens) / 2:
+            n50 = length
+            break
+    circular = sum(graph.segment_is_circular(n) for n in graph.segments)
+    t1 = time.time()
+    ident, covered, low, n_pieces, n_aligned = identity_to_truth(
+        graph, reps, dev)
+    gfa = os.path.join(os.path.dirname(args.out), 'assembly.gfa')
+    os.makedirs(os.path.dirname(gfa), exist_ok=True)
+    graph.save_to_gfa(gfa, verbosity=3)
+    check_s = time.time() - t1
+    best = max(range(len(qualities)), key=lambda k: qualities[k])
+    busy = sum(a['ms'] for a in per_kernel.values())
+    log('assembly: %.2f s wall; %d unitigs (%d circular), %d bp, N50 %d, '
+        'longest %s' % (wall, len(lens), circular, sum(lens), n50, lens[:3]))
+    log('spans (s): %s' % json.dumps(
+        {k: v['seconds'] for k, v in spans.items()
+         if k.count('/') <= 1}))
+    log('kernel launches: %s' % json.dumps(launches))
+    log_kernel_times(per_kernel, launches)
+    log('device busy at most %.1f%% of the assembly wall (kernel time / '
+        'wall)' % (100 * busy * 1e-3 / wall))
+    log('counters: %s' % json.dumps(
+        {k: v for k, v in sorted(counters.items())
+         if k.startswith(('polish.', 'retry.', 'tape.retry', 'wave.launches',
+                          'tape.fetch'))}))
+    log('polish: mapping quality by round %s (best round %d); %d CIGARs '
+        're-tallied, %d off their score'
+        % (['%.2f' % x for x in qualities], best, tally['checked'],
+           tally['bad']))
+    log('truth: %d pieces of 10 kb, %d aligned, identity %.3f%%, covering '
+        '%.2f%% of the genome (%.1f s); pieces under 99%% (piece, identity, '
+        'replicon, start, end): %s; unitigs saved to %s'
+        % (n_pieces, n_aligned, ident, 100 * covered, check_s,
+           json.dumps(low), gfa))
+    report['assembly'] = {
+        'wall_s': wall, 'reads': len(sim), 'read_bases': total,
+        'genome': [len(s) for s in reps], 'unitigs': lens,
+        'circular': circular, 'n50': n50, 'qualities': qualities,
+        'retallied': tally['checked'], 'tally_bad': tally['bad'],
+        'identity': ident, 'low_pieces': low,
+        'covered': covered, 'launches': launches,
+        'per_kernel': per_kernel, 'counters': counters, 'spans': spans}
+    if tally['bad']:
+        raise AssertionError('%d polish CIGARs do not re-tally'
+                             % tally['bad'])
+    if not tally['checked']:
+        raise AssertionError('polish aligned nothing')
+    if ident < 99.0 or covered < 0.9:
+        raise AssertionError('unitigs reach %.3f%% identity over %.1f%% of '
+                             'the genome (gate: 99%% over 90%%)'
+                             % (ident, 100 * covered))
+    # A piece that crosses a layout deletion of the OLC (which the JAX
+    # package's unpolished unitigs share) reads well under 99%, so the
+    # gate is on how many pieces fall short, not on the lowest.
+    if n_aligned < n_pieces or len(low) > 0.1 * n_pieces:
+        raise AssertionError('%d of %d unitig pieces aligned, %d under 99%% '
+                             'identity (gate: all, at most 10%%)'
+                             % (n_aligned, n_pieces, len(low)))
+    if qualities[best] <= qualities[0]:
+        raise AssertionError('polish never raised the mapping quality above '
+                             'round 0 (%.2f)' % qualities[0])
+    if launches['wavetape_fwd'] <= 0 or launches['wavetape_walk'] <= 0:
+        raise AssertionError('polish did not go through the wave kernels')
+    return launches, per_kernel
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -801,11 +1305,13 @@ def main():
     phase_kernels(np.random.default_rng(args.seed), dev, kres)
     launches, per_kernel = phase_slice(args, dev, report)
     phase_small_reference(dev)
-    retry_launches = phase_retry(args, dev, report)
+    retry_launches = phase_retry(args, dev, kres, report)
     phase_tape_kernels(np.random.default_rng(args.seed + 2), dev, kres,
                        report)
     bridge_launches, bridge_kernels, widths = phase_bridging(args, dev,
                                                               report)
+    wavefront_launches, wavefront_ms = phase_wavefront(dev, kres, report)
+    asm_launches, asm_kernels = phase_assembly(args, dev, report)
     assert 'jax' not in sys.modules
 
     sources = {'wavetape_fwd': ('unicycler_tpu_torch/csrc/wavetape_fwd.cu',
@@ -817,7 +1323,11 @@ def main():
                'tape_fwd': ('unicycler_tpu_torch/csrc/tape_fwd.cu',
                             'unicycler_tpu/ops/pallas_tape.py:583'),
                'tape_walk': ('unicycler_tpu_torch/csrc/tape_walk.cu',
-                             'unicycler_tpu/ops/pallas_tape.py:777')}
+                             'unicycler_tpu/ops/pallas_tape.py:777'),
+               'banded_walk': ('unicycler_tpu_torch/csrc/banded_walk.cu',
+                               'unicycler_tpu/ops/pallas_traceback.py:150'),
+               'wavefront_fwd': ('unicycler_tpu_torch/csrc/wavefront_fwd.cu',
+                                 'unicycler_tpu/ops/pallas_wavefront.py:312')}
     # the row-tape kernels' summary row is the bridging phase's commonest
     # launch shape; the others' the widest main-path shape measured
     main_shape = max(widths, key=widths.get) if widths else ''
@@ -828,12 +1338,17 @@ def main():
                   if 'W%d.bt%d' % (r['W'], r['bt']) == main_shape]
         row = shaped[0] if kname.startswith('tape_') and shaped else \
             max(rows, key=lambda r: (r['W'], r['bt']))
-        if kname == 'banded':
-            n_launch = retry_launches
+        # each kernel's launches on the path that runs it, counted from 0
+        # just before that path: retries (phase 5), bridging (phase 7),
+        # the wavefront entry (phase 9), the assembly (phase 10)
+        if kname in retry_launches:
+            n_launch = retry_launches[kname]
         elif kname.startswith('tape_'):
             n_launch = bridge_launches[kname]
+        elif kname == 'wavefront_fwd':
+            n_launch = wavefront_launches
         else:
-            n_launch = launches[kname]
+            n_launch = asm_launches[kname]
         entry = {'name': kname, 'route': 'cuda', 'source': src,
                  'replaces': replaces, 'launches': n_launch,
                  'max_abs_err': max(r['max_abs_err'] for r in rows),
@@ -844,10 +1359,12 @@ def main():
                  'library_ms': None, 'shape': {'W': row['W'],
                                                'bt': row['bt']}}
         main_kernels = bridge_kernels if kname.startswith('tape_') \
-            else per_kernel
+            else asm_kernels
         if kname in main_kernels:
             entry['main_path_ms'] = main_kernels[kname]['ms']
             entry['main_path_bound_ms'] = main_kernels[kname]['bound_ms']
+        if kname == 'wavefront_fwd':
+            entry['main_path_ms'] = wavefront_ms
         kernels.append(entry)
     report['kernels'] = kernels
     report['kernel_rows'] = kres

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CONFIGS, SCORING_T, pa_key, tasks_np
+from torch_parity import (CONFIGS, SCORING_T, pa_key, retally, tasks_np,
+                          zigzag_tasks)
 
 pytestmark = pytest.mark.gpu
 
@@ -228,3 +229,108 @@ def test_gpu_batch_align_row_route_matches_cpu(cfg, monkeypatch):
     assert cuda_lib.LAUNCHES['tape_walk'] > 0
     want = dispatch.batch_align(qs, rs, *args, device='cpu')
     assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
+
+
+@pytest.mark.parametrize('W', [256, 512, 1024, 2048])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_banded_walk_bit_equal_to_plain(cfg, W):
+    """The banded traceback walker against its plain version, on the
+    banded kernel's moves at the retry path's widths."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops import traceback_kernels as tbk
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(29, [180, 700, 90, 400, 1300, 64], drift=True)]
+    host = bo._pack_bucket(tasks, list(range(len(tasks))), 2048, 2048, W,
+                           bk.BT)
+    bargs = [torch.from_numpy(x).to(dev) for x in host]
+    score, ei, ej, moves = bk.banded_batch_cuda(*bargs, scoring, config, W,
+                                                True)
+    crow = bargs[2][:, 1:].contiguous()
+    got = tbk.banded_traceback_cuda(moves, crow, ei, ej, W)
+    want = tbk.banded_traceback_plain(moves, crow, ei, ej, W)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] != 0).sum()) > 1000
+
+
+@pytest.mark.parametrize('W', [128, 512, 1024])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_wavefront_bit_equal_to_plain(cfg, W):
+    """The per-task wavefront forward against its plain version on
+    drifting corridors; the entry's ends on the card equal the CPU's."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import wavefront as wf
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
+    tasks = tasks_np(31, [300, 900, 640, 1200, 150], drift=True)
+    n_acts = np.array([len(t[0]) for t in tasks], np.int32)
+    m_acts = np.array([len(t[1]) for t in tasks], np.int32)
+    q = np.zeros((len(tasks), n_acts.max()), np.int8)
+    r = np.zeros((len(tasks), m_acts.max()), np.int8)
+    c_rows = []
+    for b, (tq, tr, cr, cf) in enumerate(tasks):
+        q[b, :len(tq)] = tq
+        r[b, :len(tr)] = tr
+        c_rows.append(bo.build_corridor(cr, cf, len(tq), len(tr), W))
+    staged = wf._prepare(q, r, c_rows, n_acts, m_acts, W)
+    args = [torch.from_numpy(x).to(dev) for x in staged[:4]]
+    kw = dict(W=W, Wcap=staged[6], a_lo=staged[4], scoring=scoring,
+              config=config)
+    for g, w in zip(wf.wavefront_forward_cuda(*args, **kw),
+                    wf.wavefront_forward_plain(*args, **kw)):
+        assert torch.equal(g, w)
+    got = wf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts,
+                                      scoring, config, W, device=dev)
+    want = wf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts,
+                                       scoring, config, W, device='cpu')
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize('band', [40, 200])
+def test_gpu_align_banded_retries_walk_on_the_card(band, monkeypatch):
+    """align_banded on FULLY_GLOBAL tasks with zigzag corridors sends the
+    tasks the wave route's group windows find no path in to the retry
+    path, which walks them on the card into CIGARs that re-tally; the
+    results equal the host-decode retry path."""
+    import functools
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops.pairwise import FULLY_GLOBAL, Scoring
+    from unicycler_tpu_torch.utils import trace
+    tasks = [bo.BandedTask(*t) for t in zigzag_tasks(5)]
+    inner = bo._align_banded_moves_path
+    retried = []
+
+    def observed(task_list, *a, **kw):
+        out = inner(task_list, *a, **kw)
+        retried.extend(out)
+        return out
+
+    monkeypatch.setattr(bo, '_align_banded_moves_path', observed)
+    trace.reset()
+    trace.enable()
+    cuda_lib.reset_launches()
+    try:
+        got = bo.align_banded(tasks, Scoring(*SCORING_T), FULLY_GLOBAL,
+                              band, True, device=dev)
+        walked = trace.as_dict()['counters'].get('retry.device_walk', 0)
+        monkeypatch.setattr(bo, '_align_banded_moves_path', functools.partial(
+            inner, device_walk=False))
+        want = bo.align_banded(tasks, Scoring(*SCORING_T), FULLY_GLOBAL,
+                               band, True, device=dev)
+    finally:
+        trace.disable()
+    if band == 40:
+        assert walked > 0 and cuda_lib.LAUNCHES['banded_walk'] > 0
+        assert sum(1 for p in retried if p.cigar) > 0
+    assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
+    for t, pa in zip(tasks, got):
+        if pa.cigar:
+            assert retally(t.q, t.r, pa) == pa.score

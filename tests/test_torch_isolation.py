@@ -58,13 +58,19 @@ def _job():
 @pytest.mark.parametrize('entry', ['align_jobs', 'align_banded',
                                    'semi_global_align_long_reads',
                                    'align_pairs', 'batch_align',
-                                   'create_long_read_bridges'])
+                                   'create_long_read_bridges',
+                                   'make_miniasm_string_graph',
+                                   'polish_unitigs',
+                                   'wavefront_batch_corridor'])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
     from unicycler_tpu_torch.align import semi_global
+    from unicycler_tpu_torch.asm import hybrid, polish
     from unicycler_tpu_torch.bridges import long_read
-    from unicycler_tpu_torch.ops import banded, dispatch, pairwise
+    from unicycler_tpu_torch.graph.string_graph import (StringGraph,
+                                                        StringGraphSegment)
+    from unicycler_tpu_torch.ops import banded, dispatch, pairwise, wavefront
     from unicycler_tpu_torch.ops.pairwise import Scoring
     with pytest.raises(RuntimeError, match='CUDA'):
         if entry == 'align_jobs':
@@ -83,6 +89,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         elif entry == 'create_long_read_bridges':
             long_read.create_long_read_bridges(
                 None, {}, [], [], 0, 0.0, 1, None, 50, False, 10.0)
+        elif entry == 'make_miniasm_string_graph':
+            job = _job()
+            hybrid.make_miniasm_string_graph(
+                None, {'r': job.reads[0]}, None, job.scoring_scheme, None,
+                None, None, [])
+        elif entry == 'polish_unitigs':
+            job = _job()
+            graph = StringGraph(None)
+            graph.segments['1'] = StringGraphSegment(
+                '1', job.references[0].sequence)
+            polish.polish_unitigs(graph, job.reads, job.scoring_scheme,
+                                  hybrid=False)
+        elif entry == 'wavefront_batch_corridor':
+            q, r, _, _ = tasks_np(1, [50], False)[0]
+            wavefront.wavefront_batch(q[None], r[None], [-60], [len(q)],
+                                      [len(r)], Scoring(*SCORING_T),
+                                      pairwise.SEMI_GLOBAL, 128)
         else:
             job = _job()
             semi_global.semi_global_align_long_reads(
@@ -96,6 +119,8 @@ def test_cpu_tensors_take_the_plain_versions():
     from unicycler_tpu_torch.ops import banded_kernel as bk
     from unicycler_tpu_torch.ops import cuda_lib
     from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops import traceback_kernels as tbk
+    from unicycler_tpu_torch.ops import wavefront as wf
     from unicycler_tpu_torch.ops import wavetape_kernels as wk
     from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
     from unicycler_tpu_torch.ops.tape import build_tapes
@@ -145,6 +170,22 @@ def test_cpu_tensors_take_the_plain_versions():
     want = bk.banded_batch_plain(*(torch.from_numpy(x) for x in host),
                                  scoring, SEMI_GLOBAL, W, True)
     for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    crow = torch.from_numpy(host[2][:, 1:])
+    got = tbk.banded_traceback(want[3], crow, want[1], want[2], W)
+    for a, b in zip(got, tbk.banded_traceback_plain(want[3], crow, want[1],
+                                                    want[2], W)):
+        assert torch.equal(a, b)
+
+    q = np.stack([np.resize(t.q, 150) for t in tasks])
+    r = np.stack([np.resize(t.r, 200) for t in tasks])
+    staged = wf._prepare(q, r, [np.arange(151) - 40] * 2, np.array([150] * 2),
+                         np.array([200] * 2), W)
+    args = [torch.from_numpy(x) for x in staged[:4]]
+    kw = dict(W=W, Wcap=staged[6], a_lo=staged[4], scoring=scoring,
+              config=SEMI_GLOBAL)
+    for a, b in zip(wf.wavefront_forward(*args, **kw),
+                    wf.wavefront_forward_plain(*args, **kw)):
         assert torch.equal(a, b)
     assert cuda_lib.LAUNCHES == before
 

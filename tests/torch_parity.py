@@ -36,3 +36,34 @@ def pa_key(pa):
             int(pa.s2_start), int(pa.s2_end),
             [(int(c), str(op)) for c, op in pa.cigar],
             int(pa.s1_len), int(pa.s2_len))
+
+
+def zigzag_tasks(seed, n_tasks=24):
+    """FULLY_GLOBAL tasks whose zigzag corridors make the wave route retry
+    some of them, most with a real path in the per-row band."""
+    rng = np.random.default_rng(seed)
+    return synth.zigzag_tasks(
+        rng, [int(x) for x in rng.integers(300, 1500, n_tasks)])
+
+
+def retally(q, r, pa, scoring_t=SCORING_T):
+    """Score of pa's CIGAR walked over the code arrays q (s1) and r (s2)
+    from its start cell, or None when it does not end at its end cell."""
+    match, mismatch, gap_open, gap_extend = scoring_t
+    i, j, total = int(pa.s1_start), int(pa.s2_start), 0
+    for count, op in pa.cigar:
+        count = int(count)
+        if op == 'M':
+            same = int((q[i:i + count] == r[j:j + count]).sum())
+            total += same * match + (count - same) * mismatch
+            i += count
+            j += count
+        else:
+            total += gap_open + (count - 1) * gap_extend
+            if op == 'I':
+                i += count
+            else:
+                j += count
+    if (i, j) != (int(pa.s1_end), int(pa.s2_end)):
+        return None
+    return total

@@ -12,7 +12,8 @@ columns j in [c[i], c[i]+W). Two routes, chosen by the device:
     package's use_wavetape routes them. Tasks whose walk escapes the band,
     or whose corner a no-free-end config could not reach in the wave
     route's group-quantized window, retry on the bucketed banded kernel
-    (ops/banded_kernel.py) with a host traceback.
+    (ops/banded_kernel.py) with its traceback walked on the device too
+    (ops/traceback_kernels.py).
   * CPU: the JAX package's CPU route — the bucketed row DP, whose DP is
     the plain twin of the XLA _banded_single, decoded on the host.
 
@@ -551,11 +552,21 @@ def align_banded_async(tasks, scoring, config=SEMI_GLOBAL, band=25,
 
 
 def _align_banded_moves_path(task_list, scoring, config, W, need_cigar,
-                             device=None):
-    """Band-escape retries: the bucketed banded kernel with a host
-    traceback over its moves, for a few tasks."""
-    from .banded_kernel import BT, banded_batch
+                             device=None, device_walk=None):
+    """Band-escape retries: the bucketed banded kernel for a few tasks.
+
+    With device_walk (the default on CUDA) the traceback is walked on the
+    device as well (ops/traceback_kernels.py) and only 4-byte row records
+    come back; a task whose walk escapes its band then fetches its own
+    moves rows and takes the host traceback, the JAX package's
+    device-walk-then-moves-path chain. Without it, every task's moves come
+    back and decode on the host (the JAX package's CPU route). The two
+    give the same results."""
+    from .banded_kernel import BT, banded_batch, banded_with_traceback
+    from ..utils import trace
     dev = resolve_device(device)
+    walk = need_cigar and (dev.type == 'cuda' if device_walk is None
+                           else device_walk)
     results = [None] * len(task_list)
     # Memory guard: the (B, n_pad, W/8) int32 moves array of a very long,
     # very wide task would need tens of GB. Such tasks get the zero-score
@@ -572,16 +583,67 @@ def _align_banded_moves_path(task_list, scoring, config, W, need_cigar,
     for (n_pad, m_pad), idxs in _buckets(task_list, kept).items():
         B = ((len(idxs) + BT - 1) // BT) * BT
         host = _pack_bucket(task_list, idxs, n_pad, m_pad, W, B)
-        score, end_i, end_j, moves = banded_batch(
-            *(_upload(x, dev) for x in host), scoring, config, W,
-            need_cigar)
+        up = [_upload(x, dev) for x in host]
         cb, n_acts, m_acts = host[2], host[3], host[4]
-        if need_cigar:
-            moves = moves[:len(idxs)].cpu().numpy()
-        _emit_results(results, idxs, score.cpu().numpy(),
-                      end_i.cpu().numpy(), end_j.cpu().numpy(), moves, cb,
-                      n_acts, m_acts, need_cigar, config)
+        n = len(idxs)
+        if not walk:
+            score, end_i, end_j, moves = banded_batch(*up, scoring, config,
+                                                      W, need_cigar)
+            if need_cigar:
+                moves = moves[:n].cpu().numpy()
+                trace.add('retry.fetch_bytes', moves.nbytes)
+            _emit_results(results, idxs, score.cpu().numpy(),
+                          end_i.cpu().numpy(), end_j.cpu().numpy(), moves,
+                          cb, n_acts, m_acts, need_cigar, config)
+            continue
+        score, end_i, end_j, records, final, moves = banded_with_traceback(
+            *up, scoring, config, W)
+        rows = int(n_acts[:n].max())
+        score, end_i, end_j, records, final = fetched = [
+            x.cpu().numpy() for x in (score[:n], end_i[:n], end_j[:n],
+                                      records[:n, :rows], final[:n])]
+        trace.add('retry.device_walk', n)
+        trace.add('retry.fetch_bytes', sum(a.nbytes for a in fetched))
+        for bi in _emit_results_records(results, idxs, score, end_i, end_j,
+                                        records, final, cb, n_acts, m_acts,
+                                        W, config):
+            sl = slice(bi, bi + 1)
+            task_moves = moves[bi, :int(n_acts[bi])].cpu().numpy()
+            trace.add('retry.host_decode', 1)
+            trace.add('retry.fetch_bytes', task_moves.nbytes)
+            _emit_results(results, [idxs[bi]], score[sl], end_i[sl],
+                          end_j[sl], task_moves[None], cb[sl], n_acts[sl],
+                          m_acts[sl], True, config)
     return results
+
+
+def _emit_results_records(results, idxs, score, end_i, end_j, records,
+                          final, cb, n_acts, m_acts, W, config):
+    """Decode a bucket's device-walk row records into PairAlignments (the
+    JAX package's _emit_results_records). Returns the bucket slots left
+    for the host traceback: band escapes (stop code 2), and column-0 stops
+    whose cell lies outside its row's band, which the walk ends as a
+    column-0 stop but the host traceback as a band escape."""
+    from .tape_kernels import records_to_cigar
+    host = []
+    for bi, i in enumerate(idxs):
+        if score[bi] <= NEG // 2:
+            results[i] = PairAlignment(score=0, s1_start=0, s1_end=0,
+                                       s2_start=0, s2_end=0, cigar=[],
+                                       s1_len=int(n_acts[bi]),
+                                       s2_len=int(m_acts[bi]))
+            continue
+        fi, fj, code = (int(x) for x in final[bi])
+        if code == 2 or (code == 1 and not 0 <= -int(cb[bi, fi]) < W):
+            host.append(bi)
+            continue
+        cigar, si, sj = records_to_cigar(records[bi], end_i[bi], fi, fj,
+                                         code, config)
+        results[i] = PairAlignment(
+            score=int(score[bi]), s1_start=si, s1_end=int(end_i[bi]),
+            s2_start=sj, s2_end=int(end_j[bi]), cigar=cigar,
+            s1_len=int(n_acts[bi]), s2_len=int(m_acts[bi]))
+    return host
 
 
 def _emit_results(results, idxs, score, end_i, end_j, moves, cb,

@@ -179,7 +179,8 @@ def banded_batch_cuda(q, r_ext, c, n_acts, m_acts, scoring: Scoring,
     moves = torch.empty((B, n_pad, W // 8), dtype=torch.int32, device=dev) \
         if need_moves else None
     lib = cuda_lib.lib()
-    with cuda_lib.timed('banded', dev, (q, r_ext, c, moves)):
+    with cuda_lib.timed('banded', dev, (q, r_ext, c,
+                                           cuda_lib.shape_only(moves))):
         err = lib.banded_launch(
             q.data_ptr(), n_pad, r_ext.data_ptr(), r_ext.shape[1],
             c.data_ptr(), n_acts.data_ptr(), m_acts.data_ptr(),
@@ -206,3 +207,17 @@ def banded_batch(q, r_ext, c, n_acts, m_acts, scoring: Scoring,
     if q.device.type == 'cpu':
         return banded_batch_plain(*args, scoring, config, W, need_moves)
     raise ValueError('unsupported device %s' % q.device)
+
+
+def banded_with_traceback(q, r_ext, c, n_acts, m_acts, scoring: Scoring,
+                          config: AlignConfig, W: int):
+    """Forward DP and the traceback walk on the tensors' device (the JAX
+    package's pallas_banded_with_traceback): the moves stay on the device
+    and 4-byte row records come back. Returns (score, end_i, end_j,
+    records (B, n_pad), final (B, 3), moves); the moves are returned for
+    the caller to fetch the rows of band-escaped walks only."""
+    from .traceback_kernels import banded_traceback
+    score, end_i, end_j, moves = banded_batch(q, r_ext, c, n_acts, m_acts,
+                                              scoring, config, W, True)
+    records, final = banded_traceback(moves, c[:, 1:], end_i, end_j, W)
+    return score, end_i, end_j, records, final, moves

@@ -13,7 +13,9 @@ launches its kernel and nowhere else, so a caller can reset the counts,
 run the main path, and see which kernels it went through. Setting
 TIMINGS to a list makes every launch append (name, start event, end
 event, outputs) with CUDA events around the launch, for measuring the
-kernels' device time on a real run; it is None (off) by default.
+kernels' device time on a real run; it is None (off) by default. Moves
+arrays enter TIMINGS as storage-free stand-ins (shape_only), so a timed
+run holds no more device memory than an untimed one.
 """
 
 import ctypes
@@ -27,13 +29,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_ROOT = os.path.join(_PKG_DIR, '_build')
 SOURCES = ('wavetape_fwd.cu', 'wavetape_walk.cu', 'banded.cu', 'tape_fwd.cu',
-           'tape_walk.cu')
+           'tape_walk.cu', 'banded_walk.cu', 'wavefront_fwd.cu')
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ARCH_FLAGS + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v', '-lineinfo']
 
 LAUNCHES = {'wavetape_fwd': 0, 'wavetape_walk': 0, 'banded': 0,
-            'tape_fwd': 0, 'tape_walk': 0}
+            'tape_fwd': 0, 'tape_walk': 0, 'banded_walk': 0,
+            'wavefront_fwd': 0}
 
 TIMINGS = None
 
@@ -139,6 +142,12 @@ _SIGNATURES = {
     # fin, B, L, GWp, W, TT, stream
     'tape_walk_launch': [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
+    # moves, crow, end_i, end_j, records, fin, B, n_pad, W, stream
+    'banded_walk_launch': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # par, db, zq, zr, hatn, lcv, lci, B, W, Wcap, GWp, n_groups, a_lo,
+    # match, mismatch, open, ext, free_start_s1, free_start_s2, stream
+    'wavefront_fwd_launch': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -178,6 +187,14 @@ class timed(object):
             self.ev[1].record(torch.cuda.current_stream(self.device))
             TIMINGS.append((self.name, self.ev[0], self.ev[1], self.outputs))
         return False
+
+
+def shape_only(x):
+    """A meta tensor with x's shape and dtype (None for None): what a cost
+    count needs of an output that is only measured by its size."""
+    import torch
+    return None if x is None else torch.empty(x.shape, dtype=x.dtype,
+                                              device='meta')
 
 
 def check(err, name):

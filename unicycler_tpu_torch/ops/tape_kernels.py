@@ -249,8 +249,9 @@ def tape_forward_cuda(rowinfo, gplane, r_flat, scoring: Scoring,
     hatn = torch.zeros((L // G, B, GWp), dtype=torch.int32, device=dev)
     best = torch.empty((L // G, B, 2), dtype=torch.int32, device=dev)
     lib = cuda_lib.lib()
-    with cuda_lib.timed('tape_fwd', dev, (rowinfo, gplane, r_flat, moves,
-                                          hatn, best)):
+    with cuda_lib.timed('tape_fwd', dev, (rowinfo, gplane, r_flat,
+                                          cuda_lib.shape_only(moves), hatn,
+                                          best)):
         err = lib.tape_fwd_launch(
             rowinfo.data_ptr(), gplane.data_ptr(), r_flat.data_ptr(),
             r_flat.shape[1], moves.data_ptr() if need_moves else None,

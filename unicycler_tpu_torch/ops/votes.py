@@ -140,3 +140,51 @@ class _Runs(object):
         self.op_codes = op_codes
 
 
+def left_align_indels(cigar, q, r, i0, j0):
+    """Normalise indel placement: shift every I/D run as far left as
+    score-equivalence allows (a deletion of ref[j..j+c) may move to
+    ref[j-1..j+c-1) when r[j-1] == r[j+c-1]; insertions likewise over
+    the read). Voting consensus needs this: reads whose alignments place
+    the same indel at different-but-equivalent positions inside a
+    homopolymer/duplication split their gap votes across columns, and no
+    single column ever outvotes its base count — measured on a perfect-
+    read OLC assembly, 27 junction-insertion bases survived four polish
+    rounds untouched until placements were normalised. q/r are code
+    arrays in the same coordinate frames as i0 (read) and j0 (ref).
+    Returns a runs object accepted by ColumnVotes.add_alignment."""
+    counts, ops = cigar_arrays(cigar)
+    out = []
+    i, j = int(i0), int(j0)
+    for c, op in zip(counts.tolist(), np.asarray(ops).tolist()):
+        if op == 0:
+            if out and out[-1][1] == 0:
+                out[-1][0] += c
+            else:
+                out.append([c, 0])
+            i += c
+            j += c
+            continue
+        prev_len = out[-1][0] if (out and out[-1][1] == 0) else 0
+        shift = 0
+        if op == 2:                    # deletion consumes ref [j, j+c)
+            while shift < prev_len and j - 1 - shift >= 0 \
+                    and r[j - 1 - shift] == r[j + c - 1 - shift]:
+                shift += 1
+            j += c
+        else:                          # insertion consumes read [i, i+c)
+            while shift < prev_len and i - 1 - shift >= 0 \
+                    and q[i - 1 - shift] == q[i + c - 1 - shift]:
+                shift += 1
+            i += c
+        if shift:
+            out[-1][0] -= shift
+            if out[-1][0] == 0:
+                out.pop()
+        if out and out[-1][1] == op:
+            out[-1][0] += c
+        else:
+            out.append([c, op])
+        if shift:
+            out.append([shift, 0])
+    return _Runs(np.array([c for c, _ in out], np.int64),
+                 np.array([o for _, o in out], np.int8))

@@ -240,7 +240,8 @@ def wavetape_forward_cuda(q_tape, r_flat, plane, scoring: Scoring,
                         device=dev) if need_moves else None
     best = torch.empty((B, NG, 5), dtype=torch.int32, device=dev)
     lib = cuda_lib.lib()
-    with cuda_lib.timed('wavetape_fwd', dev, (q_tape, r_flat, plane, moves,
+    with cuda_lib.timed('wavetape_fwd', dev, (q_tape, r_flat, plane,
+                                              cuda_lib.shape_only(moves),
                                               best)):
         err = lib.wavetape_fwd_launch(
             q_tape.data_ptr(), q_tape.shape[1], r_flat.data_ptr(),

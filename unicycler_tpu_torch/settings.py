@@ -4,6 +4,8 @@ read, numerically identical, since they shape the pipeline's decisions).
 """
 
 # Alignment driver (ref settings.py:18-67, unicycler_align.py)
+ALLOWED_MINIMAP_OVERLAP = 5
+MAX_TO_MIN_MINIMISER_RATIO = 10
 MIN_LONG_READ_ALIGNMENT_LENGTH = 50
 AUTO_SCORE_STDEV_ABOVE_RANDOM_ALIGNMENT_MEAN = 7
 
@@ -55,3 +57,8 @@ PATHLESS_BRIDGE_QUAL_TWO_DEAD_ENDS_WITH_LINEAR_SEQS = 0.6
 PATHLESS_BRIDGE_QUAL_ONE_DEAD_END_WITH_LINEAR_SEQS = 0.4
 PATHLESS_BRIDGE_QUAL_NO_DEAD_ENDS_WITH_LINEAR_SEQS = 0.2
 LONG_READ_BRIDGE_HALF_QUAL_LENGTH = 2000
+
+# String-graph assembly + polish (ref settings.py:30-45, 169-174)
+CONTIG_READ_QSCORE = 40
+RACON_POLISH_LOOP_COUNT_HYBRID = 2
+RACON_POLISH_LOOP_COUNT_LONG_ONLY = 4

@@ -79,6 +79,37 @@ def simulate_reads(rng, replicons, n_reads, n50=15000, min_len=1000,
     return reads
 
 
+def simulate_read_set(rng, replicons, depth, n50=15000, min_len=1000,
+                      max_len=60000, sub=0.04, ins=0.02, dele=0.02,
+                      sigma=0.6):
+    """Long reads of circular replicons at `depth`-fold coverage: reads of
+    the simulate_reads length and error model are drawn until their true
+    spans total depth x the genome's length. A read may run past its
+    replicon's end and wrap to its start (truth.end may exceed the
+    replicon's length). Returns [(name, sequence, ReadTruth)]."""
+    lens = np.array([len(r) for r in replicons], np.float64)
+    lut = np.zeros(256, np.int8)
+    lut[_BASES] = np.arange(4)
+    codes = [lut[np.frombuffer(r.encode(), np.uint8)] for r in replicons]
+    mu = np.log(n50) - sigma ** 2
+    target, total, reads = depth * lens.sum(), 0, []
+    while total < target:
+        rep = int(rng.choice(len(replicons), p=lens / lens.sum()))
+        length = int(np.clip(rng.lognormal(mu, sigma), min_len,
+                             min(max_len, len(replicons[rep]))))
+        start = int(rng.integers(0, len(replicons[rep])))
+        piece = np.take(codes[rep], np.arange(start, start + length),
+                        mode='wrap')
+        rev = bool(rng.integers(0, 2))
+        if rev:
+            piece = _COMP[piece[::-1]]
+        seq = _to_str(_mutate(rng, piece, sub, ins, dele))
+        reads.append(('read_%d' % len(reads), seq,
+                      ReadTruth(rep, rev, start, start + length)))
+        total += length
+    return reads
+
+
 def banded_tasks(rng, sizes, drift=False, sub=0.06, ins=0.02, dele=0.02):
     """Standalone banded-DP tasks: per size n, a random reference window of
     n + 120 bases and a mutated copy of n of its bases as the query, with a
@@ -97,6 +128,27 @@ def banded_tasks(rng, sizes, drift=False, sub=0.06, ins=0.02, dele=0.02):
             cr = [0, len(q)]
             cf = [off, off + n]
         out.append((q, ref, np.array(cr, np.int32), np.array(cf, np.int32)))
+    return out
+
+
+def zigzag_tasks(rng, sizes, amp=44, step=24, sub=0.03, ins=0.01,
+                 dele=0.01):
+    """Global banded-DP tasks whose corridors zigzag: per size n, a random
+    reference of n bases and a mutated copy of it as the query, with
+    corridor anchors every `step` rows alternately `amp` diagonals above
+    and below the straight line from (0, 0) to the end. A group-quantized
+    wavefront window lags such a corridor where a per-row band follows it,
+    so a no-free-end alignment can find no path in the first and a real
+    one in the second. Returns [(q, r, corridor_read, corridor_ref)]."""
+    out = []
+    for n in sizes:
+        ref = rng.integers(0, 4, n).astype(np.int8)
+        q = _mutate(rng, ref, sub, ins, dele).astype(np.int8)
+        rows = np.arange(0, len(q) + step, step)
+        rows[-1] = len(q)
+        cf = np.round(rows * (n / len(q))).astype(np.int64)
+        cf[1:-1] += amp * (np.arange(1, len(rows) - 1) % 2 * 2 - 1)
+        out.append((q, ref, rows.astype(np.int32), cf.astype(np.int32)))
     return out
 
 
