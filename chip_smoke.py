@@ -7,24 +7,36 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases (every failed check raises, so the exit code is nonzero):
   1. device: the card's name and power limit;
-  2. build: nvcc builds the kernels of csrc/ (build seconds and the
-     -Xptxas -v register / shared-memory lines);
+  2. build: nvcc builds the kernels of csrc/ (build seconds, the -Xptxas
+     -v register / shared-memory / spill lines, and the wave kernels'
+     resident blocks per SM);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at the main path's widths (W = 512 and 1024, 8 and 32 tracks),
-     with shortened tasks; outputs must be bit-equal; CUDA-event times;
+     card, with shortened tasks; outputs must be bit-equal (the wave
+     forward's over each track's real groups); CUDA-event times. The wave
+     kernels run in the JAX package's layout (W = 512 and 1024, 8 and 32
+     tracks) and in the card's (one task a track, 264 tracks of mixed
+     lengths at W = 128, 512, 1024 and 2048); then an A/B of the two
+     layouts on 300 polish-shaped tasks (N50 ~16 kbp, W = 512): each
+     kernel's device time in each (JAX, card, card, JAX), and equal
+     per-task scores, ends and CIGARs; the banded kernel at W = 512, 1024;
   4. the slice: align_jobs on a synthetic 5 Mbp chromosome + 100 kbp
      plasmid with 200 long reads (N50 ~15 kb, ~8% errors) at sensitivity 0
      plus 20 reads at sensitivity 2; checks true placement and that every
-     CIGAR re-tallies to its raw score; counts kernel launches;
+     CIGAR re-tallies to its raw score; counts kernel launches and the
+     tracks of each wave launch (at least min(tasks, 132) unless the moves
+     budget cannot hold that many);
   5. the retry path: _align_banded_moves_path on the card (the banded
      kernel, its moves walked on the card) against the host-decode route
      and the CPU route; the walker against its plain version at W = 512,
      1024 and 2048; align_banded on FULLY_GLOBAL tasks with zigzag
-     corridors, which the wave route's group windows find no path in and
-     retry inside the call (all four kernels of the route), against the
-     host-decode retry path, with the walked CIGARs re-tallied and the
-     walker held to its plain version at the call's width; bytes copied
-     back by both retry routes;
+     corridors, some of which the wave route finds no path for and
+     retries inside the call (all four kernels of the route), in the
+     card's layout and in the JAX package's (where a NEG task's walk
+     overwrites a neighbour's records, and the neighbour's retry is
+     walked on the card into a CIGAR), both equal to the host-decode
+     retry path, with the CIGARs re-tallied and the walker held to its
+     plain version at the call's width; bytes copied back by both retry
+     routes;
   6. row-tape kernels: the forward kernel and walker of bands W > 2048
      against their plain versions at W = 4096 and 8192 (8 and 32 tracks),
      shortened tasks, bit-equal, CUDA-event times; and the full-matrix DP
@@ -53,7 +65,8 @@ Phases (every failed check raises, so the exit code is nonzero):
      >= 90% of the genome, every piece aligned and at most 10% of them
      under 99%, and that the best polish round's mapping
      quality is above round 0's (polish_unitigs keeps the best round);
-     lists the pieces under 99% and saves the unitigs to
+     lists the pieces under 99%, the wave launches with their tracks and
+     each kernel's device time beside its bound, and saves the unitigs to
      chiprun_out/assembly.gfa;
   8. summary (printed last): one {"kernels": [...]} line with all seven
      kernels, then the card's line.
@@ -120,6 +133,25 @@ def cuda_time(fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
+def kernel_time(fn, reps=1):
+    """Mean device time of the kernel launches fn makes, from the CUDA
+    events cuda_lib.timed records around each launch alone (so the
+    wrapper's host work between launches is not counted), and fn's last
+    output."""
+    import torch
+    from unicycler_tpu_torch.ops import cuda_lib
+    cuda_lib.TIMINGS = []
+    try:
+        out = None
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        ms = [e0.elapsed_time(e1) for _, e0, e1, _ in cuda_lib.TIMINGS]
+    finally:
+        cuda_lib.TIMINGS = None
+    return sum(ms) / len(ms), out
+
+
 def exact(name, a, b):
     """Max |a - b| over int arrays; raises unless shapes match and a == b."""
     import torch
@@ -142,14 +174,17 @@ def walk_steps(records):
     return int((rec == 1).sum()) + int((rec[rec >= 6] >> 2).sum())
 
 
-def wave_fwd_cost(q, r, plane, moves, best):
-    """(bytes, ops, cells) of one wavefront forward launch: every input
-    and output once; B * NG * G * W cells at OPS_PER_CELL_WAVE."""
+def wave_fwd_cost(q, r, plane, ngt, moves, best):
+    """(bytes, ops, cells) of one wavefront forward launch, counting each
+    track's real groups only (ngt; the padding of either layout is not
+    the function's work): G * W cells a group at OPS_PER_CELL_WAVE; the
+    tapes read once, and a real group's plane row, moves and best once."""
     from unicycler_tpu_torch.ops.wavetape import G
-    B, NG = plane.shape[:2]
-    cells = B * NG * G * moves.shape[2]
-    nbytes = sum(x.numel() * x.element_size()
-                 for x in (q, r, plane, moves, best))
+    groups = int(ngt.to('cpu').sum())
+    W = moves.shape[2]
+    cells = groups * G * W
+    per_group = (plane.shape[2] + best.shape[2]) * 4 + (G // 8) * W * 4
+    nbytes = q.numel() + r.numel() + ngt.numel() * 4 + groups * per_group
     return nbytes, cells * OPS_PER_CELL_WAVE, cells
 
 
@@ -224,6 +259,25 @@ def kernel_costs(timings):
     return totals
 
 
+def wave_launch_shapes(timings, counters):
+    """Tracks of each wave forward launch of a run (from its timed
+    launches), logged with the short-launch counters of
+    ops/banded._wavetape_dispatch. Raises on a launch with fewer than
+    min(tasks of its call, 132) tracks that the moves budget could have
+    held (wave.short.*); a launch the budget forced short is named
+    (wave.budget_short.*) and allowed."""
+    tracks = [outs[2].shape[0] for name, _, _, outs in timings
+              if name == 'wavetape_fwd']
+    short = {k: v for k, v in sorted(counters.items())
+             if k.startswith(('wave.short', 'wave.budget_short'))}
+    log('wave launches: %d; tracks per launch %s; short launches %s'
+        % (len(tracks), tracks, json.dumps(short) if short else 'none'))
+    if counters.get('wave.short_launches', 0):
+        raise AssertionError('wave launches below min(tasks, 132) tracks '
+                             'that the moves budget could hold: %s' % short)
+    return tracks
+
+
 def log_kernel_times(per_kernel, launches):
     for name, agg in sorted(per_kernel.items()):
         bound = 'bound %.3f ms' % agg['bound_ms'] \
@@ -282,74 +336,236 @@ def phase_build():
         ptxas = f.read()
     for line in ptxas.splitlines():
         if 'Compiling entry' in line or 'registers' in line \
-                or line.startswith('=='):
+                or 'spill' in line or line.startswith('=='):
             log('  ' + line.strip())
-    return secs
+    occ = cuda_lib.occupancy()
+    log('resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor'
+        '): wavetape_fwd %s; wavetape_walk %d blocks of %d tracks'
+        % (', '.join('W %d: %d x %d threads' % (W, b, t)
+                     for W, (b, t) in sorted(occ['wavetape_fwd'].items())),
+           occ['wavetape_walk'][0], occ['wavetape_walk'][1]))
+    return secs, occ
 
 
-def phase_kernels(rng, dev, results):
+def wave_kernels_against_plain(tp, W, scoring, config, dev, results,
+                               layout):
+    """Both wave kernels on one WaveLaunch against their plain versions:
+    moves and best bit-equal over each track's real groups, records and
+    fin bit-equal; CUDA-event times; one result row each."""
+    import torch
+    from unicycler_tpu_torch.ops import wavetape_kernels as wk
+    from unicycler_tpu_torch.ops.wavetape import forward_inputs
+    up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
+    q, r = up[0], up[1]
+    bt = q.shape[0]
+    plane, _ = wk.group_plane(*up[2:11], q.shape[1], r.shape[1], W)
+    ngt = wk.track_groups(up[11])
+    fwd = lambda: wk.wavetape_forward_cuda(q, r, plane, ngt, scoring, config,
+                                           W, True)
+    fwd()
+    ms, out_k = kernel_time(fwd, reps=5)
+    plain_ms, out_p = cuda_time(
+        lambda: wk.wavetape_forward_plain(q, r, plane, scoring, config, W,
+                                          True))
+    (mv_k, best_k), (mv_p, best_p) = (wk.real_groups(*out_k, ngt),
+                                      wk.real_groups(*out_p, ngt))
+    del out_p
+    err = max(exact('wavetape_fwd moves', mv_k, mv_p),
+              exact('wavetape_fwd best', best_k, best_p))
+    del mv_p, best_p
+    nbytes, ops, cells = wave_fwd_cost(q, r, plane, ngt, mv_k, best_k)
+    results.append({'name': 'wavetape_fwd', 'W': W, 'bt': bt,
+                    'layout': layout, 'ms': ms, 'plain_ms': plain_ms,
+                    'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
+                    'cells': cells, 'max_abs_err': err})
+
+    score, ei, ej, _, db_rows = wk.wavetape_forward(
+        *up, scoring=scoring, config=config, W=W, need_moves=False)
+    valid = up[4] > 0
+    zero = torch.zeros_like(ei)
+    wargs = [x.to(torch.int32).contiguous() for x in
+             (mv_k, db_rows, torch.from_numpy(tp.n_tasks).to(dev),
+              torch.where(valid, ei, zero), torch.where(valid, ej, zero),
+              torch.where(valid, torch.from_numpy(tp.abase).to(dev), zero))]
+    walk = lambda: wk.wavetape_traceback_cuda(*wargs, W)
+    walk()
+    wms, (rec_k, fin_k) = kernel_time(walk, reps=3)
+    wplain_ms, (rec_p, fin_p) = cuda_time(
+        lambda: wk.wavetape_traceback_plain(*wargs, W))
+    werr = max(exact('wavetape_walk records', rec_k, rec_p),
+               exact('wavetape_walk fin', fin_k, fin_p))
+    wbytes, wops, steps = wave_walk_cost(rec_k, fin_k)
+    results.append({'name': 'wavetape_walk', 'W': W, 'bt': bt,
+                    'layout': layout, 'ms': wms, 'plain_ms': wplain_ms,
+                    'bound_ms': bound_ms(wbytes, wops), 'bytes': wbytes,
+                    'steps': steps, 'max_abs_err': werr})
+    log('%s layout W=%4d tracks=%3d groups=%6d  fwd %.3f ms (plain %.0f '
+        'ms, bound %.4f ms)  walk %.3f ms (plain %.0f ms, %d steps)  '
+        'bit-equal' % (layout, W, bt, cells // (32 * W), ms, plain_ms,
+                       bound_ms(nbytes, ops), wms, wplain_ms, steps))
+
+
+def wave_fwd_scaling(rng, dev, scoring, config, report, W=512):
+    """The forward kernel's time on the card's layout as the tracks of a
+    launch grow (66 to 528 short tasks of the same length mix), each
+    launch timed alone five times: how the time follows the blocks per
+    SM."""
+    import torch
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import wavetape_kernels as wk
+    from unicycler_tpu_torch.ops.wavetape import (build_wave_launches,
+                                                  forward_inputs)
+    sizes = [int(x) for x in rng.integers(300, 1500, 528)]
+    pool = [bo.BandedTask(*t) for t in
+            synth.banded_tasks(rng, sizes, drift=True)]
+    rows = []
+    for tracks in (66, 132, 264, 528):
+        tp = build_wave_launches(pool[:tracks], W, bo.build_corridor)[0]
+        up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
+        plane, _ = wk.group_plane(*up[2:11], up[0].shape[1],
+                                  up[1].shape[1], W)
+        ngt = wk.track_groups(up[11])
+        fwd = lambda: wk.wavetape_forward_cuda(up[0], up[1], plane, ngt,
+                                               scoring, config, W, True)
+        fwd()
+        cuda_lib.TIMINGS = []
+        times = [cuda_time(fwd)[0] for _ in range(5)]
+        launch_ms = [e0.elapsed_time(e1) for _, e0, e1, _ in cuda_lib.TIMINGS]
+        cuda_lib.TIMINGS = None
+        groups = int(ngt.sum())
+        rows.append({'tracks': tracks, 'groups': groups,
+                     'max_groups': int(ngt.max()), 'ms': times,
+                     'launch_ms': launch_ms})
+        log('W=%d %3d tracks (%6d groups, longest %d): fwd %s ms (kernel '
+            'alone %s ms)' % (W, tracks, groups, int(ngt.max()),
+                              ' '.join('%.3f' % t for t in times),
+                              ' '.join('%.3f' % t for t in launch_ms)))
+    report['wave_fwd_scaling'] = {'W': W, 'rows': rows}
+
+
+def polish_like_tasks(rng, n_tasks, n50=16000, sigma=0.6):
+    """Tasks shaped like the assembly's polish alignments: log-normal read
+    lengths with N50 ~ n50 (synth.simulate_reads' distribution), each a
+    mutated copy of its reference window under the reads' error model,
+    with a corridor bent at the middle."""
+    import numpy as np
+    from unicycler_tpu_torch import synth
+    mu = np.log(n50) - sigma ** 2
+    sizes = [int(x) for x in np.clip(rng.lognormal(mu, sigma, n_tasks),
+                                     1000, 60000)]
+    return synth.banded_tasks(rng, sizes, drift=True, sub=0.04, ins=0.02,
+                              dele=0.02)
+
+
+def wave_layout_ab(rng, dev, scoring, config, report, n_tasks=300, W=512):
+    """One set of polish-shaped tasks through both wave kernels in the JAX
+    package's layout (tape.choose_bt tracks) and in the card's (one task a
+    track): device time of each kernel in each, and equal per-task score,
+    ends and decoded CIGARs."""
+    import torch
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops.wavetape import (build_wave_launches,
+                                                  build_wavetapes)
+    tasks = [bo.BandedTask(*t) for t in polish_like_tasks(rng, n_tasks)]
+    lens = sorted((len(t.q) for t in tasks), reverse=True)
+    acc = n50 = 0
+    for length in lens:
+        acc += length
+        if acc >= sum(lens) / 2:
+            n50 = length
+            break
+    rows = {}
+    for layout, build in (('jax', build_wavetapes),
+                          ('task', build_wave_launches),
+                          ('task', build_wave_launches),
+                          ('jax', build_wavetapes)):
+        launches = build(tasks, W, bo.build_corridor)
+        results = [None] * len(tasks)
+        cuda_lib.TIMINGS = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pending = bo._wave_queue(launches, scoring, config, W, True, dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+        grouped = bo._tape_collect(pending)
+        retry = bo._tape_decode(results, list(range(len(tasks))), pending,
+                                grouped, True, config)
+        per = kernel_costs(timings)
+        row = {'launches': len(launches),
+               'tracks': [tp.q_tape.shape[0] for tp in launches],
+               'fwd_ms': per['wavetape_fwd']['ms'],
+               'walk_ms': per['wavetape_walk']['ms'],
+               'fwd_bound_ms': per['wavetape_fwd']['bound_ms'],
+               'walk_bound_ms': per['wavetape_walk']['bound_ms'],
+               'queue_wall_s': wall, 'retry': len(retry)}
+        if layout in rows:
+            rows[layout]['repeat'] = row
+            if results != rows[layout]['results']:
+                raise AssertionError('%s layout: two runs differ' % layout)
+            continue
+        row['results'] = results
+        rows[layout] = row
+    a, b = rows['jax'].pop('results'), rows['task'].pop('results')
+    same = sum(x == y for x, y in zip(a, b))
+    log('A/B on %d polish-shaped tasks (N50 %d, %d bp, W %d): JAX layout %d '
+        'launches of %s tracks: fwd %.2f ms, walk %.2f ms; card layout %d '
+        'launches of %s tracks: fwd %.2f ms, walk %.2f ms (bound %.2f / '
+        '%.4f ms); repeats %.2f / %.2f and %.2f / %.2f ms; %d/%d tasks '
+        'equal (score, ends, CIGAR)'
+        % (len(tasks), n50, sum(lens), W, rows['jax']['launches'],
+           rows['jax']['tracks'], rows['jax']['fwd_ms'],
+           rows['jax']['walk_ms'], rows['task']['launches'],
+           rows['task']['tracks'], rows['task']['fwd_ms'],
+           rows['task']['walk_ms'], rows['task']['fwd_bound_ms'],
+           rows['task']['walk_bound_ms'], rows['task']['repeat']['fwd_ms'],
+           rows['task']['repeat']['walk_ms'], rows['jax']['repeat']['fwd_ms'],
+           rows['jax']['repeat']['walk_ms'], same, len(tasks)))
+    report['wave_ab'] = dict(rows, tasks=len(tasks), n50=n50,
+                             bases=sum(lens), W=W, equal=same)
+    if same != len(tasks):
+        raise AssertionError('the two layouts differ on %d tasks'
+                             % (len(tasks) - same))
+
+
+def phase_kernels(rng, dev, results, report):
     """Each kernel against its plain version on the card."""
     import torch
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.ops import banded as bo
     from unicycler_tpu_torch.ops import banded_kernel as bk
-    from unicycler_tpu_torch.ops import wavetape_kernels as wk
     from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
-    from unicycler_tpu_torch.ops.wavetape import (build_wavetapes,
-                                                  forward_inputs)
+    from unicycler_tpu_torch.ops.wavetape import (build_wave_launches,
+                                                  build_wavetapes)
 
     log('== phase 3: kernels against their plain versions')
     scoring = Scoring(3, -6, -5, -2)
     config = SEMI_GLOBAL
+    # the JAX package's layout (several tasks a track) at 8 and 32 tracks
     for W, bt, size in ((512, 8, 1500), (512, 32, 1500), (1024, 8, 1200),
                         (1024, 32, 1200)):
         tasks = [bo.BandedTask(*t) for t in
                  synth.banded_tasks(rng, [size] * bt, drift=True)]
         tp = build_wavetapes(tasks, W, bo.build_corridor, bt=bt)[0]
-        up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
-        q, r = up[0], up[1]
-        plane, dbase_g = wk.group_plane(*up[2:11], q.shape[1], r.shape[1], W)
-        fwd = lambda: wk.wavetape_forward_cuda(q, r, plane, scoring, config,
-                                               W, True)
-        fwd()
-        ms, (mv_k, best_k) = cuda_time(fwd, reps=5)
-        plain_ms, (mv_p, best_p) = cuda_time(
-            lambda: wk.wavetape_forward_plain(q, r, plane, scoring, config,
-                                              W, True))
-        err = max(exact('wavetape_fwd moves', mv_k, mv_p),
-                  exact('wavetape_fwd best', best_k, best_p))
-        nbytes, ops, cells = wave_fwd_cost(q, r, plane, mv_k, best_k)
-        results.append({'name': 'wavetape_fwd', 'W': W, 'bt': bt,
-                        'ms': ms, 'plain_ms': plain_ms,
-                        'bound_ms': bound_ms(nbytes, ops),
-                        'bytes': nbytes, 'cells': cells,
-                        'max_abs_err': err})
-
-        score, ei, ej, _, db_rows = wk.wavetape_forward(
-            *up, scoring=scoring, config=config, W=W, need_moves=False)
-        valid = up[4] > 0
-        zero = torch.zeros_like(ei)
-        wargs = [x.to(torch.int32).contiguous() for x in
-                 (mv_k, db_rows, torch.from_numpy(tp.n_tasks).to(dev),
-                  torch.where(valid, ei, zero), torch.where(valid, ej, zero),
-                  torch.where(valid, torch.from_numpy(tp.abase).to(dev),
-                              zero))]
-        walk = lambda: wk.wavetape_traceback_cuda(*wargs, W)
-        walk()
-        wms, (rec_k, fin_k) = cuda_time(walk, reps=3)
-        wplain_ms, (rec_p, fin_p) = cuda_time(
-            lambda: wk.wavetape_traceback_plain(*wargs, W))
-        werr = max(exact('wavetape_walk records', rec_k, rec_p),
-                   exact('wavetape_walk fin', fin_k, fin_p))
-        wbytes, wops, steps = wave_walk_cost(rec_k, fin_k)
-        results.append({'name': 'wavetape_walk', 'W': W, 'bt': bt,
-                        'ms': wms, 'plain_ms': wplain_ms,
-                        'bound_ms': bound_ms(wbytes, wops),
-                        'bytes': wbytes, 'steps': steps,
-                        'max_abs_err': werr})
-        log('W=%4d bt=%2d  fwd %.3f ms (plain %.0f ms)  walk %.3f ms '
-            '(plain %.0f ms, %d steps)  bit-equal'
-            % (W, bt, ms, plain_ms, wms, wplain_ms, steps))
+        wave_kernels_against_plain(tp, W, scoring, config, dev, results,
+                                   'jax')
+    # the card's layout (one task a track): 264 tracks of mixed lengths,
+    # two resident blocks on each of the 132 SMs
+    for W in (128, 512, 1024, 2048):
+        sizes = [int(x) for x in rng.integers(300, 1500, 264)]
+        tasks = [bo.BandedTask(*t) for t in
+                 synth.banded_tasks(rng, sizes, drift=True)]
+        launches = build_wave_launches(tasks, W, bo.build_corridor)
+        if len(launches) != 1 or launches[0].q_tape.shape[0] != len(tasks):
+            raise AssertionError('264 short tasks did not make one launch '
+                                 'of 264 tracks')
+        wave_kernels_against_plain(launches[0], W, scoring, config, dev,
+                                   results, 'task')
+    wave_fwd_scaling(rng, dev, scoring, config, report)
+    wave_layout_ab(rng, dev, scoring, config, report)
 
     for W, size in ((512, 1500), (1024, 1200)):
         tasks = [bo.BandedTask(*t) for t in
@@ -470,6 +686,7 @@ def phase_slice(args, dev, report):
     log('trace counters: %s' % json.dumps(
         {k: v for k, v in sorted(counters.items())
          if k.startswith(('wave.', 'tape.'))}))
+    tracks = wave_launch_shapes(timings, counters)
     if launches['wavetape_fwd'] <= 0 or launches['wavetape_walk'] <= 0:
         raise AssertionError('the slice did not go through the wave kernels')
     if frac < 0.95:
@@ -483,7 +700,7 @@ def phase_slice(args, dev, report):
                    cells / wall, 'peak_bytes': peak, 'placed_fraction': frac,
                    'alignments': n_aln, 'launches': launches,
                    'per_kernel': per_kernel, 'n50': n50, 'spans': spans,
-                   'counters': counters})
+                   'counters': counters, 'wave_tracks': tracks})
     return launches, per_kernel
 
 
@@ -544,6 +761,7 @@ def phase_retry(args, dev, results, report):
     from unicycler_tpu_torch.ops import banded_kernel as bk
     from unicycler_tpu_torch.ops import cuda_lib
     from unicycler_tpu_torch.ops import traceback_kernels as tbk
+    from unicycler_tpu_torch.ops import wavetape
     from unicycler_tpu_torch.ops.encode import bucket_length
     from unicycler_tpu_torch.ops.pairwise import (FULLY_GLOBAL, SEMI_GLOBAL,
                                                   Scoring)
@@ -614,9 +832,13 @@ def phase_retry(args, dev, results, report):
         walk_against_plain(tasks, SEMI_GLOBAL, W)
 
     # align_banded on FULLY_GLOBAL tasks whose corridors zigzag: the wave
-    # route (kernels 1, 2) finds no path inside the group windows of some,
-    # which retry (kernels 3, 6) in the per-row band, where most of them
-    # have a real one; all inside one call
+    # route (kernels 1, 2) finds no path for some, which retry (kernels 3,
+    # 6) in the per-row band; all inside one call. In the card's layout
+    # those tasks have no path in the per-row band either. In the JAX
+    # package's layout (several tasks a track) a NEG task's walk from its
+    # unreachable corner also overwrites a neighbour's records, so that
+    # neighbour retries too and is walked on the card into a CIGAR; both
+    # layouts give the same results.
     grng = np.random.default_rng(args.seed + 5)
     gtasks = [bo.BandedTask(*t) for t in synth.zigzag_tasks(
         grng, [int(x) for x in grng.integers(300, 1500, 24)])]
@@ -624,6 +846,7 @@ def phase_retry(args, dev, results, report):
     call = lambda: bo.align_banded(gtasks, scoring, FULLY_GLOBAL, band,
                                    True, device=dev)
     inner = bo._align_banded_moves_path
+    card_layout = wavetape.build_wave_launches
     retried = []
 
     def observed(task_list, *a, **kw):
@@ -637,29 +860,40 @@ def phase_retry(args, dev, results, report):
         gwalk, gctr = retry_counters(call)
         torch.cuda.synchronize()
         glaunch = dict(cuda_lib.LAUNCHES)
+        card_walked = sum(1 for _, pa in retried if pa.cigar)
+        del retried[:]
+        wavetape.build_wave_launches = \
+            lambda t, W, corridor, budget: wavetape.build_wavetapes(
+                t, W, corridor)
+        gjax, gjctr = retry_counters(call)
+        wavetape.build_wave_launches = card_layout
         bo._align_banded_moves_path = functools.partial(inner,
                                                         device_walk=False)
         ghost, ghctr = retry_counters(call)
     finally:
         bo._align_banded_moves_path = inner
-    if gwalk != ghost:
-        raise AssertionError('align_banded with the walk on the card '
-                             'differs from the host-decode retry path')
+        wavetape.build_wave_launches = card_layout
+    if not gwalk == ghost == gjax:
+        raise AssertionError('align_banded differs between the walk on the '
+                             'card, the host-decode retry path and the JAX '
+                             'package\'s layout')
     gbad = sum(retally(t.q, t.r, pa, scoring) != pa.score
                for t, pa in zip(gtasks, gwalk) if pa.cigar)
     walked = sum(1 for _, pa in retried if pa.cigar)
     used = ('wavetape_fwd', 'wavetape_walk', 'banded', 'banded_walk')
     log('align_banded (FULLY_GLOBAL, zigzag corridors, band %d, W %d): %d '
-        'tasks, %d retried, retry.device_walk %d (%d left to the host '
-        'traceback), launches %s; equal to the host-decode retry path; %d '
-        'CIGARs (%d of them from walks on the card), %d off their score; '
-        'retry bytes copied back: %d with the walk on the card, %d with the '
-        'host decode'
+        'tasks; card layout: %d retried, retry.device_walk %d (%d left to '
+        'the host traceback), %d walked into CIGARs, launches %s; JAX '
+        'layout: %d retried, %d walked on the card into CIGARs; equal to '
+        'each other and to the host-decode retry path; %d CIGARs, %d off '
+        'their score; retry bytes copied back: %d with the walk on the '
+        'card, %d with the host decode'
         % (band, bo.band_width(band), len(gtasks), gctr.get('tape.retry', 0),
            gctr.get('retry.device_walk', 0),
-           gctr.get('retry.host_decode', 0),
+           gctr.get('retry.host_decode', 0), card_walked,
            json.dumps({k: glaunch[k] for k in used}),
-           sum(1 for p in gwalk if p.cigar), walked, gbad,
+           gjctr.get('tape.retry', 0), walked,
+           sum(1 for p in gwalk if p.cigar), gbad,
            gctr.get('retry.fetch_bytes', 0),
            ghctr.get('retry.fetch_bytes', 0)))
     if gbad:
@@ -672,7 +906,7 @@ def phase_retry(args, dev, results, report):
         raise AssertionError('no retried task of align_banded was walked '
                              'into a CIGAR')
     # kernel 6 against its plain version at the call's own width, on the
-    # tasks the call retried
+    # tasks the call retried in the JAX package's layout
     walk_against_plain([t for t, _ in retried], FULLY_GLOBAL,
                        bo.band_width(band))
     report['retry'] = {
@@ -683,7 +917,9 @@ def phase_retry(args, dev, results, report):
                          'retried': gctr.get('tape.retry', 0),
                          'device_walk': gctr.get('retry.device_walk', 0),
                          'host_decode': gctr.get('retry.host_decode', 0),
-                         'walked_cigars': walked,
+                         'walked_cigars': card_walked,
+                         'jax_layout_retried': gjctr.get('tape.retry', 0),
+                         'jax_layout_walked_cigars': walked,
                          'launches': {k: glaunch[k] for k in used},
                          'fetch_bytes_walk': gctr.get('retry.fetch_bytes', 0),
                          'fetch_bytes_host': ghctr.get('retry.fetch_bytes',
@@ -1227,12 +1463,13 @@ def phase_assembly(args, dev, report, workload=None):
         {k: v['seconds'] for k, v in spans.items()
          if k.count('/') <= 1}))
     log('kernel launches: %s' % json.dumps(launches))
+    tracks = wave_launch_shapes(timings, counters)
     log_kernel_times(per_kernel, launches)
     log('device busy at most %.1f%% of the assembly wall (kernel time / '
         'wall)' % (100 * busy * 1e-3 / wall))
     log('counters: %s' % json.dumps(
         {k: v for k, v in sorted(counters.items())
-         if k.startswith(('polish.', 'retry.', 'tape.retry', 'wave.launches',
+         if k.startswith(('polish.', 'retry.', 'tape.retry', 'wave.',
                           'tape.fetch'))}))
     log('polish: mapping quality by round %s (best round %d); %d CIGARs '
         're-tallied, %d off their score'
@@ -1249,7 +1486,7 @@ def phase_assembly(args, dev, report, workload=None):
         'circular': circular, 'n50': n50, 'qualities': qualities,
         'retallied': tally['checked'], 'tally_bad': tally['bad'],
         'identity': ident, 'low_pieces': low,
-        'covered': covered, 'launches': launches,
+        'covered': covered, 'launches': launches, 'wave_tracks': tracks,
         'per_kernel': per_kernel, 'counters': counters, 'spans': spans}
     if tally['bad']:
         raise AssertionError('%d polish CIGARs do not re-tally'
@@ -1300,9 +1537,9 @@ def main():
     name, smi_line = phase_device()
     dev = torch.device('cuda', 0)
     report = {'device': name, 'nvidia_smi': smi_line}
-    report['build_s'] = phase_build()
+    report['build_s'], report['occupancy'] = phase_build()
     kres = []
-    phase_kernels(np.random.default_rng(args.seed), dev, kres)
+    phase_kernels(np.random.default_rng(args.seed), dev, kres, report)
     launches, per_kernel = phase_slice(args, dev, report)
     phase_small_reference(dev)
     retry_launches = phase_retry(args, dev, kres, report)
@@ -1329,15 +1566,22 @@ def main():
                'wavefront_fwd': ('unicycler_tpu_torch/csrc/wavefront_fwd.cu',
                                  'unicycler_tpu/ops/pallas_wavefront.py:312')}
     # the row-tape kernels' summary row is the bridging phase's commonest
-    # launch shape; the others' the widest main-path shape measured
+    # launch shape; the wave kernels' the assembly's (the card's layout at
+    # W 512); the others' the widest main-path shape measured
     main_shape = max(widths, key=widths.get) if widths else ''
     kernels = []
     for kname, (src, replaces) in sources.items():
         rows = [r for r in kres if r['name'] == kname]
         shaped = [r for r in rows
                   if 'W%d.bt%d' % (r['W'], r['bt']) == main_shape]
-        row = shaped[0] if kname.startswith('tape_') and shaped else \
-            max(rows, key=lambda r: (r['W'], r['bt']))
+        wave = [r for r in rows if r.get('layout') == 'task'
+                and r['W'] == 512]
+        if kname.startswith('tape_') and shaped:
+            row = shaped[0]
+        elif wave:
+            row = wave[0]
+        else:
+            row = max(rows, key=lambda r: (r['W'], r['bt']))
         # each kernel's launches on the path that runs it, counted from 0
         # just before that path: retries (phase 5), bridging (phase 7),
         # the wavefront entry (phase 9), the assembly (phase 10)

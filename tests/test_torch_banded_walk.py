@@ -123,9 +123,15 @@ def test_retry_device_walk_matches_jax(cfg):
 
 def test_wave_route_retries_walk_into_cigars(monkeypatch):
     """FULLY_GLOBAL tasks with zigzag corridors: the wave route (the
-    kernels' plain versions) finds no path in some group windows, and the
-    retry path walks most of those tasks into CIGARs that re-tally; the
-    same as with the host decode."""
+    kernels' plain versions) retries the tasks it cannot align, and the
+    retry path walks them; the results equal the host decode's. On the
+    card's layout (one task a track) the retried tasks have no path in
+    the per-row band either. On the JAX package's layout (several tasks a
+    track) a NEG task's walk from its unreachable corner also overwrites
+    a neighbouring task's records, so that neighbour retries too and is
+    walked into a CIGAR that re-tallies; both layouts give the same
+    results."""
+    from unicycler_tpu_torch.ops import wavetape as tw
     tasks = [tb.BandedTask(*t) for t in zigzag_tasks(5)]
     args = (TScoring(*SCORING_T), TConfig(*CONFIGS['global']), 128, True)
     inner = tb._align_banded_moves_path
@@ -138,16 +144,27 @@ def test_wave_route_retries_walk_into_cigars(monkeypatch):
 
     want = tb.align_banded_tape(tasks, *args, device='cpu')
     monkeypatch.setattr(tb, '_align_banded_moves_path', walked)
-    trace.reset()
-    trace.enable()
-    try:
-        got = tb.align_banded_tape(tasks, *args, device='cpu')
-    finally:
-        trace.disable()
-    counters = trace.as_dict()['counters']
-    assert counters['retry.device_walk'] == counters['tape.retry'] > 0
-    assert sum(1 for p in retried if p.cigar) > 0
-    assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
-    for t, pa in zip(tasks, got):
+    runs = {}
+    for layout in ('task', 'jax'):
+        if layout == 'jax':
+            monkeypatch.setattr(tw, 'build_wave_launches',
+                                lambda t, W, corridor, budget:
+                                tw.build_wavetapes(t, W, corridor))
+        del retried[:]
+        trace.reset()
+        trace.enable()
+        try:
+            got = tb.align_banded_tape(tasks, *args, device='cpu')
+        finally:
+            trace.disable()
+        counters = trace.as_dict()['counters']
+        assert counters['retry.device_walk'] == counters['tape.retry'] > 0
+        assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
+        runs[layout] = (counters['tape.retry'],
+                        sum(1 for p in retried if p.cigar))
+    assert runs['task'][1] == 0
+    assert runs['jax'][1] > 0
+    assert runs['jax'][0] == runs['task'][0] + runs['jax'][1]
+    for t, pa in zip(tasks, want):
         if pa.cigar:
             assert retally(t.q, t.r, pa) == pa.score

@@ -42,7 +42,7 @@ def _routes(tasks, cfg, W, dev):
     return [pa_key(p) for p in got], [pa_key(p) for p in want]
 
 
-@pytest.mark.parametrize('W', [128, 512])
+@pytest.mark.parametrize('W', [128, 512, 1024, 2048])
 @pytest.mark.parametrize('drift', [False, True], ids=['straight', 'drift'])
 @pytest.mark.parametrize('cfg', sorted(CONFIGS))
 def test_gpu_wave_route_matches_cpu_route(cfg, drift, W):
@@ -52,28 +52,19 @@ def test_gpu_wave_route_matches_cpu_route(cfg, drift, W):
     assert got == want
 
 
-@pytest.mark.parametrize('W,bt', [(128, 8), (512, 32), (1024, 8),
-                                  (2048, 8)])
-@pytest.mark.parametrize('cfg', sorted(CONFIGS))
-def test_gpu_kernels_bit_equal_to_plain(cfg, W, bt):
-    dev = _cuda()
-    from unicycler_tpu_torch.ops import banded as bo
-    from unicycler_tpu_torch.ops import banded_kernel as bk
+def _wave_kernels_match_plain(tp, scoring, config, W, dev):
+    """Both wave kernels against their plain versions on one launch:
+    moves and best over each track's real groups, records and fin."""
     from unicycler_tpu_torch.ops import wavetape_kernels as wk
-    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
-    from unicycler_tpu_torch.ops.wavetape import (build_wavetapes,
-                                                  forward_inputs)
-    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
-    tasks = [bo.BandedTask(*t) for t in
-             tasks_np(23, [180, 333, 90, 400, 260], drift=True)]
-    tp = build_wavetapes(tasks, W, bo.build_corridor, bt=bt)[0]
+    from unicycler_tpu_torch.ops.wavetape import forward_inputs
     up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
     plane, _ = wk.group_plane(*up[2:11], tp.LR, tp.r_flat.shape[1], W)
-    got = wk.wavetape_forward_cuda(up[0], up[1], plane, scoring, config, W,
-                                   True)
+    ngt = wk.track_groups(up[11])
+    got = wk.wavetape_forward_cuda(up[0], up[1], plane, ngt, scoring,
+                                   config, W, True)
     want = wk.wavetape_forward_plain(up[0], up[1], plane, scoring, config,
                                      W, True)
-    for g, w in zip(got, want):
+    for g, w in zip(wk.real_groups(*got, ngt), wk.real_groups(*want, ngt)):
         assert torch.equal(g, w)
     score, ei, ej, moves, db = wk.wavetape_forward(
         *up, scoring=scoring, config=config, W=W, need_moves=True)
@@ -84,9 +75,28 @@ def test_gpu_kernels_bit_equal_to_plain(cfg, W, bt):
              torch.where(valid, ei, zero), torch.where(valid, ej, zero),
              torch.where(valid, torch.from_numpy(tp.abase).to(dev),
                          zero))]
-    for g, w in zip(wk.wavetape_traceback_cuda(*args, W),
-                    wk.wavetape_traceback_plain(*args, W)):
-        assert torch.equal(g, w)
+    rec, fin = wk.wavetape_traceback_cuda(*args, W)
+    rec_p, fin_p = wk.wavetape_traceback_plain(*args, W)
+    assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
+    return rec
+
+
+@pytest.mark.parametrize('W,bt', [(128, 8), (512, 32), (1024, 8),
+                                  (2048, 8)])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_kernels_bit_equal_to_plain(cfg, W, bt):
+    """The JAX package's layout (several tasks a track) through the wave
+    kernels, and the banded kernel, against their plain versions."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.wavetape import build_wavetapes
+    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(23, [180, 333, 90, 400, 260], drift=True)]
+    tp = build_wavetapes(tasks, W, bo.build_corridor, bt=bt)[0]
+    _wave_kernels_match_plain(tp, scoring, config, W, dev)
 
     host = bo._pack_bucket(tasks, list(range(len(tasks))), 512, 512, W,
                            bk.BT)
@@ -94,6 +104,53 @@ def test_gpu_kernels_bit_equal_to_plain(cfg, W, bt):
     for g, w in zip(bk.banded_batch_cuda(*bargs, scoring, config, W, True),
                     bk.banded_batch_plain(*bargs, scoring, config, W, True)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('W', [128, 512, 1024, 2048])
+@pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
+def test_gpu_task_layout_kernels_bit_equal_to_plain(cfg, W):
+    """The card's layout (one task a track) at 264 tracks of mixed
+    lengths through both wave kernels, against their plain versions."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.wavetape import build_wave_launches
+    rng = np.random.default_rng(W)
+    sizes = [int(x) for x in rng.integers(30, 400, 264)]
+    tasks = [bo.BandedTask(*t) for t in tasks_np(61, sizes, drift=True)]
+    launches = build_wave_launches(tasks, W, bo.build_corridor)
+    assert len(launches) == 1 and launches[0].q_tape.shape[0] == 264
+    rec = _wave_kernels_match_plain(launches[0], Scoring(*SCORING_T),
+                                    AlignConfig(*CONFIGS[cfg]), W, dev)
+    assert int((rec != 0).sum()) > 264 * 20
+
+
+def test_gpu_call_fills_the_card():
+    """A call of >= 132 tasks launches >= 132 tracks a launch."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
+    from unicycler_tpu_torch.utils import trace
+    rng = np.random.default_rng(3)
+    sizes = [int(x) for x in rng.integers(200, 1500, 200)]
+    tasks = [bo.BandedTask(*t) for t in tasks_np(67, sizes, drift=True)]
+    trace.reset()
+    trace.enable()
+    cuda_lib.reset_launches()
+    try:
+        got = bo.align_banded_tape(tasks, Scoring(*SCORING_T), SEMI_GLOBAL,
+                                   512, True, device=dev)
+    finally:
+        trace.disable()
+    ctr = trace.as_dict()['counters']
+    launches = cuda_lib.LAUNCHES['wavetape_fwd']
+    assert launches >= 1 and cuda_lib.LAUNCHES['wavetape_walk'] == launches
+    assert ctr['wave.tracks'] / ctr['wave.launches'] >= 132
+    assert ctr.get('wave.short_launches', 0) == 0
+    for t, pa in zip(tasks, got):
+        if pa.cigar:
+            assert retally(t.q, t.r, pa) == pa.score
 
 
 @pytest.mark.parametrize('seed,sensitivity', [(1, 0), (2, 1)])
@@ -295,13 +352,17 @@ def test_gpu_wavefront_bit_equal_to_plain(cfg, W):
 @pytest.mark.parametrize('band', [40, 200])
 def test_gpu_align_banded_retries_walk_on_the_card(band, monkeypatch):
     """align_banded on FULLY_GLOBAL tasks with zigzag corridors sends the
-    tasks the wave route's group windows find no path in to the retry
-    path, which walks them on the card into CIGARs that re-tally; the
-    results equal the host-decode retry path."""
+    tasks the wave route cannot align to the retry path, which walks them
+    on the card; the results equal the host-decode retry path's. In the
+    JAX package's layout (several tasks a track), where a NEG task's walk
+    also overwrites a neighbour's records, the retried neighbours are
+    walked on the card into CIGARs that re-tally, and the results equal
+    the card layout's."""
     import functools
     dev = _cuda()
     from unicycler_tpu_torch.ops import banded as bo
     from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import wavetape as tw
     from unicycler_tpu_torch.ops.pairwise import FULLY_GLOBAL, Scoring
     from unicycler_tpu_torch.utils import trace
     tasks = [bo.BandedTask(*t) for t in zigzag_tasks(5)]
@@ -313,24 +374,30 @@ def test_gpu_align_banded_retries_walk_on_the_card(band, monkeypatch):
         retried.extend(out)
         return out
 
+    call = lambda: bo.align_banded(tasks, Scoring(*SCORING_T), FULLY_GLOBAL,
+                                   band, True, device=dev)
     monkeypatch.setattr(bo, '_align_banded_moves_path', observed)
     trace.reset()
     trace.enable()
     cuda_lib.reset_launches()
     try:
-        got = bo.align_banded(tasks, Scoring(*SCORING_T), FULLY_GLOBAL,
-                              band, True, device=dev)
+        got = call()
         walked = trace.as_dict()['counters'].get('retry.device_walk', 0)
+        monkeypatch.setattr(tw, 'build_wave_launches',
+                            lambda t, W, corridor, budget:
+                            tw.build_wavetapes(t, W, corridor))
+        del retried[:]
+        got_jax = call()
         monkeypatch.setattr(bo, '_align_banded_moves_path', functools.partial(
             inner, device_walk=False))
-        want = bo.align_banded(tasks, Scoring(*SCORING_T), FULLY_GLOBAL,
-                               band, True, device=dev)
+        want = call()
     finally:
         trace.disable()
     if band == 40:
         assert walked > 0 and cuda_lib.LAUNCHES['banded_walk'] > 0
         assert sum(1 for p in retried if p.cigar) > 0
     assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
+    assert [pa_key(p) for p in got_jax] == [pa_key(p) for p in want]
     for t, pa in zip(tasks, got):
         if pa.cigar:
             assert retally(t.q, t.r, pa) == pa.score

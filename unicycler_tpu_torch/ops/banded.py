@@ -34,6 +34,8 @@ from .pairwise import NEG, PairAlignment, SEMI_GLOBAL
 from .tape import MAX_SHIFT
 
 WAVE_MAX_W = 2048      # widest band the wavefront kernels take
+# tracks a wave launch should hold to give every SM of an H100 a block
+FULL_CARD_TRACKS = 132
 
 
 def use_wavetape(W):
@@ -342,18 +344,53 @@ def _upload(x, device):
 
 
 def _wavetape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
-    """Build the wavefront tapes and queue their kernels (asynchronously
-    on CUDA). Returns a pending list of (WaveLaunch, [device outputs])."""
-    from .wavetape import build_wavetapes, forward_inputs
+    """Lay the tasks out one a track (wavetape.build_wave_launches, on
+    every device, so the CPU's plain versions run the launches the card
+    runs) and queue their kernels (asynchronously on CUDA). Returns a
+    pending list of (WaveLaunch, [device outputs]).
+
+    Counters: wave.launches, wave.tracks, wave.groups (real groups, the
+    forward kernel's work) and wave.padded_groups. A launch with fewer
+    than min(tasks, FULL_CARD_TRACKS) tracks counts in wave.short_launches
+    and is named by a wave.short.* counter, unless the budget forced it:
+    the moves budget cannot hold that many of its tasks, or it split the
+    call into more launches than its tasks can fill (then
+    wave.budget_short.*)."""
+    from . import wavetape
+    from ..utils import trace
+    budget = wavetape.MOVES_BUDGET
+    with trace.span('tape_build'):
+        launches = wavetape.build_wave_launches(live_tasks, W,
+                                                build_corridor, budget)
+    want = min(len(live_tasks), FULL_CARD_TRACKS)
+    for tp in launches:
+        tracks = tp.q_tape.shape[0]
+        if tracks < want:
+            name = 'W%d.NG%d.tracks%d.of%d' % (W, tp.NG, tracks,
+                                               len(live_tasks))
+            if wavetape.moves_bytes(want, tp.NG, W) > budget \
+                    or len(live_tasks) < want * len(launches):
+                trace.add('wave.budget_short.' + name)
+            else:
+                trace.add('wave.short_launches')
+                trace.add('wave.short.' + name)
+    return _wave_queue(launches, scoring, config, W, need_cigar, device)
+
+
+def _wave_queue(launches, scoring, config, W, need_cigar, device):
+    """Queue the forward kernel and the walker of each WaveLaunch (of
+    either layout); same pending contract as _wavetape_dispatch. A
+    launch's moves are dropped once its walk is queued (the allocator
+    reuses them in stream order), so a call holds one launch's moves."""
+    from .wavetape import forward_inputs
     from .wavetape_kernels import wavetape_forward, wavetape_traceback
     from ..utils import trace
-    with trace.span('tape_build'):
-        launches = build_wavetapes(live_tasks, W, build_corridor)
     pending = []
     for tp in launches:
         trace.add('wave.launches')
-        trace.add('wave.groups', tp.NG_real)
-        trace.add('wave.groups.W%d.bt%d' % (W, tp.q_tape.shape[0]), tp.NG)
+        trace.add('wave.tracks', tp.q_tape.shape[0])
+        trace.add('wave.groups', int((tp.lastg.max(1) + 1).sum()))
+        trace.add('wave.padded_groups', tp.q_tape.shape[0] * tp.NG)
         up = [_upload(a, device) for a in forward_inputs(tp)]
         score, end_i, end_j, moves, db_rows = wavetape_forward(
             *up, scoring=scoring, config=config, W=W, need_moves=need_cigar)
@@ -368,6 +405,7 @@ def _wavetape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
                 torch.where(valid, end_j, zero),
                 torch.where(valid, _upload(tp.abase, device), zero), W)
             outs += [records, fin]
+        del moves, db_rows
         pending.append((tp, outs))
     return pending
 

@@ -122,14 +122,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 _SIGNATURES = {
-    # q_tape, LR, r_flat, M, plane, B, NG, moves, best, W,
+    # q_tape, LR, r_flat, M, plane, ngt, B, NG, moves, best, W,
     # match, mismatch, open, ext, free_start_s1, free_start_s2, stream
-    'wavetape_fwd_launch': [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I,
+    'wavetape_fwd_launch': [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I,
                             _I, _I, _I, _I, _I, _I, _P],
+    # W, *blocks per SM, *threads per block
+    'wavetape_fwd_occupancy': [_I, _P, _P],
     # moves, db_rows, n_tasks, end_i, end_j, abase, records, fin,
     # B, LA, W, TT, stream
     'wavetape_walk_launch': [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _P],
+    # *blocks per SM, *tracks per block
+    'wavetape_walk_occupancy': [_P, _P],
     # q, n_pad, r_ext, RL, c, n_acts, m_acts, moves, score, end_i, end_j,
     # B, W, match, mismatch, open, ext, fs1, fs2, fe1, fe2, stream
     'banded_launch': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -195,6 +199,26 @@ def shape_only(x):
     import torch
     return None if x is None else torch.empty(x.shape, dtype=x.dtype,
                                               device='meta')
+
+
+def occupancy():
+    """Resident blocks per SM of the wave kernels, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor at their launch shapes:
+    {'wavetape_fwd': {W: (blocks, threads a block)}, 'wavetape_walk':
+    (blocks, tracks a block)}."""
+    handle = lib()
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    fwd = {}
+    for W in (128, 256, 384, 512, 1024, 2048):
+        check(handle.wavetape_fwd_occupancy(W, ctypes.byref(blocks),
+                                            ctypes.byref(threads)),
+              'wavetape_fwd_occupancy')
+        fwd[W] = (blocks.value, threads.value)
+    check(handle.wavetape_walk_occupancy(ctypes.byref(blocks),
+                                         ctypes.byref(threads)),
+          'wavetape_walk_occupancy')
+    return {'wavetape_fwd': fwd,
+            'wavetape_walk': (blocks.value, threads.value)}
 
 
 def check(err, name):

@@ -1,11 +1,30 @@
 """Host-side tape builder for the anti-diagonal WAVEFRONT banded DP.
 
 A copy of unicycler_tpu/ops/wavetape.py without its two-buffer launch
-packer (this package uploads the WaveLaunch arrays directly). Companion to
-ops/wavetape_kernels.py: every task of an align_banded call is laid out
-back-to-back along the WAVEFRONT axis of one launch (bt tracks). Every
+packer (this package uploads the WaveLaunch arrays directly), plus the
+card's own launch layout. Companion to ops/wavetape_kernels.py. Every
 Gotoh predecessor lives on wavefront a-1 or a-2, so one wavefront step
-is a handful of shifted elementwise ops.
+is a handful of shifted elementwise ops. Two layouts of the same tasks:
+
+  * build_wavetapes (the JAX package's): tasks back-to-back along the
+    wavefront axis of bt = 8, 16 or 32 tracks (tape.choose_bt), launches
+    cut by a group cap. Its cost model is the TPU's, where one step of
+    the vector unit costs in proportion to bt.
+  * build_wave_launches (the card's, which ops/banded takes): one task a
+    track, tasks sorted longest first, launches cut by a byte budget for
+    the moves (MOVES_BUDGET) and the tasks split evenly over them, so a
+    launch holds hundreds of tracks and every SM gets blocks.
+
+Per-task outputs do not depend on the layout: window quantisation is per
+task, group windows start at each task's own a0, each group belongs to
+one task, the carries reset at a task's first group, and the sq / sr
+clamps of ops/wavetape_kernels.group_plane bind only in the tape's head
+and tail pads (tests/test_torch_wave_layout.py holds both layouts to the
+JAX package's wave route). One difference stays inside the route: in the
+JAX layout the walk of a task with no path starts at its unreachable
+corner and may overwrite the records of the task beside it on the track,
+which then retries on the banded kernel, to the alignment the wave route
+had found; with one task a track no walk reaches another task.
 
 Layout facts the device side relies on:
 
@@ -21,8 +40,8 @@ Layout facts the device side relies on:
     corridor's MAX_SHIFT row-drift cap).
   * q bases take 1 byte per DP ROW per track (q_tape, each task's bases
     stored reversed); the reference windows go once into r_flat (W
-    sentinel pad around each window). The forward kernel reads each
-    lane's bases straight from these two arrays.
+    sentinel pad around each window). The forward kernel copies each
+    group's q and r windows from these two arrays into shared memory.
   * Windows the kernel reads from q_tape/r_flat may bleed into a
     NEIGHBOUring task's bytes: those lanes are always masked dead in the
     kernel (their cells have i outside [1, n] or j outside [1, m]), so
@@ -41,6 +60,12 @@ from .tape import _bucket_geom, _bucket_pow2, choose_bt
 
 G = 32                  # wavefronts per group (kernel unroll unit)
 G_CAP_FACTOR = 2        # per-launch group budget multiplier (see g_cap)
+# Moves bytes one build_wave_launches launch may hold on the card. A
+# polish round of the assembly holds ~16 GB of moves at W = 512 in all;
+# ops/banded frees a launch's moves once its walk is queued, so a call
+# holds one launch's at a time, and two calls in flight stay far inside
+# an 80 GB card beside the run's other memory.
+MOVES_BUDGET = 6 << 30
 
 # global pads so device window loads never leave the arrays: q windows
 # reach ~(W + G)/2 rows past either task edge, r windows ~W/2 + G
@@ -112,11 +137,20 @@ def _task_windows(c, n, W, a0, ng):
     return c[ii] - ii
 
 
-def build_wavetapes(tasks, W, build_corridor, bt=None) -> List[WaveLaunch]:
-    """Lay out tasks into wavefront-tape launches. Tasks with empty q or
-    r must be filtered by the caller. `bt` forces the track count (by
-    default tape.choose_bt picks it)."""
-    # per-task staging: corridor, span, per-group windows
+def moves_bytes(tracks, NG, W):
+    """Bytes of a launch's moves: one int32 word per 8 wavefronts, lane
+    and track."""
+    return tracks * NG * (G // 8) * W * 4
+
+
+def padded_groups(NG_real):
+    """The group count a launch whose longest track has NG_real groups is
+    padded to."""
+    return _bucket_geom(max(NG_real, 16), 16, 8)
+
+
+def _stage_tasks(tasks, W, build_corridor):
+    """Per task: (index, n, m, a0, group count, per-group window bases)."""
     metas = []
     for ti, t in enumerate(tasks):
         n, m = len(t.q), len(t.r)
@@ -124,7 +158,70 @@ def build_wavetapes(tasks, W, build_corridor, bt=None) -> List[WaveLaunch]:
         a0, a_hi, ng = _task_span(c, n, m, W)
         dbase = _task_windows(c, n, W, a0, ng)
         metas.append((ti, n, m, a0, ng, dbase))
+    return metas
 
+
+def split_by_budget(ngs, W, budget=MOVES_BUDGET):
+    """Cut group counts sorted longest first into contiguous parts whose
+    padded moves fit `budget`: as many parts as the fewest that fit (or
+    just enough more), the tasks split evenly over them, so the last
+    launch is no small remainder. A part of long tasks that the budget
+    fills holds fewer, and the later parts share the rest evenly. A task
+    too large for the budget alone gets a part of its own. Returns
+    [(lo, hi)] index ranges."""
+    n = len(ngs)
+
+    def fits(lo, hi):
+        return hi - lo == 1 or moves_bytes(hi - lo, padded_groups(ngs[lo]),
+                                           W) <= budget
+
+    def fill(parts_k):
+        """Parts filled from the longest task, each up to the budget and,
+        given parts_k, to an even share of the tasks left; None if
+        parts_k parts do not take them all."""
+        parts, lo = [], 0
+        while lo < n:
+            if parts_k is None:
+                cap = n
+            elif len(parts) == parts_k:
+                return None
+            else:
+                cap = -(-(n - lo) // (parts_k - len(parts)))
+            hi = lo + 1
+            while hi < n and hi - lo < cap and fits(lo, hi + 1):
+                hi += 1
+            parts.append((lo, hi))
+            lo = hi
+        return parts
+
+    for parts_k in range(len(fill(None)), n + 1):
+        parts = fill(parts_k)
+        if parts is not None:
+            return parts
+    return []
+
+
+def build_wave_launches(tasks, W, build_corridor, budget=MOVES_BUDGET
+                        ) -> List[WaveLaunch]:
+    """The card's layout: one task a track, tracks sorted by group count
+    (longest first), launches cut by `budget` bytes of moves (see
+    split_by_budget). Tasks with empty q or r must be filtered by the
+    caller. Launches are WaveLaunch records like build_wavetapes', so the
+    kernels, the walker and the decode take either layout."""
+    metas = _stage_tasks(tasks, W, build_corridor)
+    order = sorted(range(len(tasks)), key=lambda i: -metas[i][4])
+    ngs = [metas[i][4] for i in order]
+    return [_build_one(tasks, metas, [[order[i]] for i in range(lo, hi)],
+                       ngs[lo], W, hi - lo)
+            for lo, hi in split_by_budget(ngs, W, budget)]
+
+
+def build_wavetapes(tasks, W, build_corridor, bt=None) -> List[WaveLaunch]:
+    """Lay out tasks into wavefront-tape launches exactly as the JAX
+    package's build_wavetapes does. Tasks with empty q or r must be
+    filtered by the caller. `bt` forces the track count (by default
+    tape.choose_bt picks it)."""
+    metas = _stage_tasks(tasks, W, build_corridor)
     order = sorted(range(len(tasks)), key=lambda i: -metas[i][4])
     # group cap per launch: bounds the (bt, LA/8, W) moves intermediate
     # in device memory and the per-launch records copy.
@@ -154,7 +251,7 @@ def build_wavetapes(tasks, W, build_corridor, bt=None) -> List[WaveLaunch]:
 
 
 def _build_one(tasks, metas, assign, NG_real, W, bt) -> WaveLaunch:
-    NG = _bucket_geom(max(NG_real, 16), 16, 8)
+    NG = padded_groups(NG_real)
     TT = _bucket_pow2(max(max((len(a) for a in assign), default=1), 8), 8)
 
     # per-track q rows / r sizes

@@ -29,6 +29,9 @@ from .wavetape import G
 
 _BIG = 1 << 30
 NEG_HALF = NEG // 2
+# band widths the wave kernels take: every ops/banded.band_width up to
+# ops/banded.WAVE_MAX_W
+WAVE_WIDTHS = (128, 256, 384, 512, 1024, 2048)
 
 # fields of the per-(track, group) plane handed to the forward kernel
 (P_DB, P_ADV, P_RST, P_HIT, P_A0, P_N2, P_M2, P_SQ, P_SR) = range(9)
@@ -45,8 +48,10 @@ def group_plane(adv8, gflags, n_t, m_t, r_base, rowbase, dbase0, a0, seg_g,
     window base of every group (B, NG) int64.
 
     Fields: window base diagonal dbase_g, carry advance at group entry,
-    reset flag, capture flag (set for a group when ANY track's group
-    crosses a row n or column m, as the TPU kernel gated its merge), the
+    reset flag, capture flag (set when some wavefront of this track's
+    group crosses its task's row n or column m; the TPU kernel gated on
+    the OR over all tracks, which changes no output: a group of the track
+    that crosses neither captures only NEG, so its merge is a no-op), the
     task-local wavefront of the group's first step, 2*n and 2*m of the
     owning task, and the start offsets sq / sr of the group's query and
     reference windows in half-base units (the TPU kernel's repeat-2 lane
@@ -74,10 +79,29 @@ def group_plane(adv8, gflags, n_t, m_t, r_base, rowbase, dbase0, a0, seg_g,
     sq = (2 * (rowb + n_g) + 1 - kq).clamp(0, 2 * LR - GWp - 128)
     kr = a_g0 + dbase_g
     sr = (2 * (rb - 1) + kr).clamp(0, 2 * M - GWp - 128)
-    hit_any = hit.amax(0, keepdim=True).expand(B, NG)
-    plane = torch.stack([dbase_g, adv8.to(torch.int64), rst, hit_any, a_g0,
+    plane = torch.stack([dbase_g, adv8.to(torch.int64), rst, hit, a_g0,
                          2 * n_g, 2 * take(m_t), sq, sr], -1)
     return plane.to(torch.int32).contiguous(), dbase_g
+
+
+def track_groups(lastg):
+    """Real groups of each track, (B,) int32: its last task's lastg + 1
+    (0 for a track with no task). The forward kernel stops there."""
+    return (lastg.to(torch.int64).amax(1) + 1).clamp(min=0).to(torch.int32)
+
+
+def real_groups(moves, best, ngt):
+    """moves and best with every group at or past its track's real group
+    count zeroed: what the forward kernel defines (it skips the padding)
+    and its plain version computes too."""
+    B, NG = best.shape[:2]
+    keep = torch.arange(NG, device=best.device)[None, :] \
+        < ngt.to(best.device).to(torch.int64)[:, None]
+    best = torch.where(keep[:, :, None], best, 0)
+    if moves is not None:
+        keep_rows = keep.repeat_interleave(G // 8, dim=1)
+        moves = torch.where(keep_rows[:, :, None], moves, 0)
+    return moves, best
 
 
 def _to_int32_bits(x):
@@ -89,7 +113,10 @@ def wavetape_forward_plain(q_tape, r_flat, plane, scoring: Scoring,
                            config: AlignConfig, W: int, need_moves: bool):
     """Plain PyTorch version of the forward kernel. Returns (moves
     (B, NG*G/8, W) int32 or None, best (B, NG, 5) int32): best holds each
-    group's running (corner, row-n value, its j, column-m value, its i)."""
+    group's running (corner, row-n value, its j, column-m value, its i).
+    It computes every group, a track's padding past its last task
+    included, so on the JAX package's layout it equals the Pallas kernel
+    in full; the CUDA kernel stops at each track's last real group."""
     match_s, mismatch = int(scoring.match), int(scoring.mismatch)
     open_, ext = int(scoring.gap_open), int(scoring.gap_extend)
     B, NG, _ = plane.shape
@@ -119,7 +146,8 @@ def wavetape_forward_plain(q_tape, r_flat, plane, scoring: Scoring,
         p = pl[:, g, :]
         c0w, adv, rst = p[:, P_DB:P_DB + 1], p[:, P_ADV:P_ADV + 1], \
             p[:, P_RST:P_RST + 1]
-        hit = bool(p[0, P_HIT])
+        hit_t = p[:, P_HIT:P_HIT + 1] == 1       # each track's own gate
+        hit = bool(hit_t.any())
         ag0, n2, m2 = p[:, P_A0:P_A0 + 1], p[:, P_N2:P_N2 + 1], \
             p[:, P_M2:P_M2 + 1]
         sq, sr = p[:, P_SQ:P_SQ + 1], p[:, P_SR:P_SR + 1]
@@ -190,9 +218,9 @@ def wavetape_forward_plain(q_tape, r_flat, plane, scoring: Scoring,
             h = torch.where(lane == u, h0v, h)
 
             if hit:
-                rowm = lane == u - n2
+                rowm = (lane == u - n2) & hit_t
                 hat_l = torch.where(rowm, h, hat_l)
-                colm = lane == m2 - jv
+                colm = (lane == m2 - jv) & hit_t
                 cor_l = torch.where(rowm & colm, h, cor_l)
                 lcm = colm & (u - lane >= 0) & (u - lane <= n2)
                 hlc = torch.where(lcm, h, NEG)
@@ -223,29 +251,42 @@ def wavetape_forward_plain(q_tape, r_flat, plane, scoring: Scoring,
             best.to(torch.int32))
 
 
-def wavetape_forward_cuda(q_tape, r_flat, plane, scoring: Scoring,
+def wavetape_forward_cuda(q_tape, r_flat, plane, ngt, scoring: Scoring,
                           config: AlignConfig, W: int, need_moves: bool):
-    """Launch csrc/wavetape_fwd.cu; same contract as the plain version."""
+    """Launch csrc/wavetape_fwd.cu: the plain version's contract over each
+    track's first ngt[b] groups (ngt: (B,) int32, track_groups); moves and
+    best of the groups past them are left unwritten."""
     B, NG, nf = plane.shape
     dev = q_tape.device
     for name, x, dt in (('q_tape', q_tape, torch.uint8),
                         ('r_flat', r_flat, torch.int8),
-                        ('plane', plane, torch.int32)):
+                        ('plane', plane, torch.int32),
+                        ('ngt', ngt, torch.int32)):
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError('%s must be a contiguous %s tensor on %s'
                              % (name, dt, dev))
-    if nf != N_FIELDS or q_tape.shape[0] != B or r_flat.shape[0] != B:
+    if nf != N_FIELDS or q_tape.shape[0] != B or r_flat.shape[0] != B \
+            or tuple(ngt.shape) != (B,):
         raise ValueError('inconsistent launch shapes')
+    if W not in WAVE_WIDTHS:
+        raise ValueError('W = %d: the wave kernels take W in %s'
+                         % (W, WAVE_WIDTHS))
+    # the kernel copies 16-byte chunks of the tapes into shared memory
+    for name, x in (('q_tape', q_tape), ('r_flat', r_flat)):
+        if x.data_ptr() % 16 or x.shape[1] % 16:
+            raise ValueError('%s rows must start on 16-byte boundaries'
+                             % name)
     moves = torch.empty((B, NG * (G // 8), W), dtype=torch.int32,
                         device=dev) if need_moves else None
     best = torch.empty((B, NG, 5), dtype=torch.int32, device=dev)
     lib = cuda_lib.lib()
-    with cuda_lib.timed('wavetape_fwd', dev, (q_tape, r_flat, plane,
-                                              cuda_lib.shape_only(moves),
-                                              best)):
+    shape = cuda_lib.shape_only
+    with cuda_lib.timed('wavetape_fwd', dev, (
+            shape(q_tape), shape(r_flat), shape(plane), ngt, shape(moves),
+            shape(best))):
         err = lib.wavetape_fwd_launch(
             q_tape.data_ptr(), q_tape.shape[1], r_flat.data_ptr(),
-            r_flat.shape[1], plane.data_ptr(), B, NG,
+            r_flat.shape[1], plane.data_ptr(), ngt.data_ptr(), B, NG,
             moves.data_ptr() if need_moves else None, best.data_ptr(), W,
             int(scoring.match), int(scoring.mismatch),
             int(scoring.gap_open), int(scoring.gap_extend),
@@ -267,7 +308,8 @@ def wavetape_forward(q_tape, r_flat, adv8, gflags, n_t, m_t, r_base,
                                  dbase0, a0, seg_g, q_tape.shape[1],
                                  r_flat.shape[1], W)
     if q_tape.device.type == 'cuda':
-        moves, best = wavetape_forward_cuda(q_tape, r_flat, plane, scoring,
+        moves, best = wavetape_forward_cuda(q_tape, r_flat, plane,
+                                            track_groups(lastg), scoring,
                                             config, W, need_moves)
     elif q_tape.device.type == 'cpu':
         moves, best = wavetape_forward_plain(q_tape, r_flat, plane, scoring,
