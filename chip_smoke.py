@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (every failed check raises, so the exit code is nonzero):
   1. device: the card's name and power limit;
   2. build: nvcc builds the kernels of csrc/ (build seconds, the -Xptxas
-     -v register / shared-memory / spill lines, and the wave kernels'
-     resident blocks per SM);
+     -v register / shared-memory / spill lines, the wave kernels'
+     resident blocks per SM and the row forward's resident clusters of 1,
+     2, 4 and 8 blocks at W = 4096 and 8192);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, with shortened tasks; outputs must be bit-equal (the wave
      forward's over each track's real groups); CUDA-event times. The wave
@@ -37,10 +38,14 @@ Phases (every failed check raises, so the exit code is nonzero):
      retry path, with the CIGARs re-tallied and the walker held to its
      plain version at the call's width; bytes copied back by both retry
      routes;
-  6. row-tape kernels: the forward kernel and walker of bands W > 2048
-     against their plain versions at W = 4096 and 8192 (8 and 32 tracks),
-     shortened tasks, bit-equal, CUDA-event times; and the full-matrix DP
-     (torch ops) timed at the bridging path's short-pair shape;
+  6. row-tape kernels: the forward kernel (at each cluster size 1, 2, 4
+     and 8, each launch timed alone) and walker of bands W > 2048 against
+     their plain versions at W = 4096 and 8192, in the JAX package's
+     layout (8 and 32 tracks) and the card's (12 one-task tracks), bit-
+     equal over each track's real groups; an A/B of the two layouts on 84
+     bridging-shaped tasks at W = 4096 (JAX, card, card, JAX) with equal
+     per-task results; and the full-matrix DP (torch ops) timed at the
+     bridging path's short-pair shape;
   7. bridging: the 5 Mbp + 100 kbp genome with 7 copies of a 5,000 bp and
      12 of a 1,300 bp repeat planted in the chromosome (each with a 250 bp
      indel allele in about half of its copies), its collapsed overlap-0
@@ -49,7 +54,11 @@ Phases (every failed check raises, so the exit code is nonzero):
      checks that every planted adjacency is bridged, that >= 95% of the
      bridges take the true allele's path, that every CIGAR of consensus and
      path scoring re-tallies to its score, and that the row-tape kernels
-     and the full-matrix DP ran;
+     and the full-matrix DP ran; lists every row forward launch (tracks,
+     blocks a track, SMs busy, time, bound), fails on a row launch under
+     min(tasks, 132) tracks that the budget could hold, replays every
+     banded call of W > 2048 in the JAX package's row layout (the parent
+     commit's) with equal results, and prints a digest of the bridges;
   9. the per-task wavefront forward (wavefront_batch_corridor) at the
      shapes of scripts/wavefront_microbench.py (8 tasks of 2,048 rows, W =
      512 and 1024, drift 0 and 4 per 16 rows): bit-equal to its plain
@@ -77,6 +86,7 @@ chiprun_out/chip_smoke.json.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import random
@@ -204,13 +214,22 @@ def row_walk_steps(records):
     return int(((rec & 7) != 0).sum()) + int((rec >> 3).sum())
 
 
-def tape_fwd_cost(rowinfo, gplane, r_flat, moves, hatn, best, W):
-    """(bytes, ops, cells) of one row-tape forward launch: every input
-    read once and every output written once; the band cells of the
-    active rows (W each) at OPS_PER_CELL_ROW."""
+def tape_fwd_cost(rowinfo, gplane, r_flat, ngt, moves, hatn, best, C):
+    """(bytes, ops, cells) of one row-tape forward launch, counting each
+    track's real groups only (ngt; the kernel stops there): the inputs
+    read once, a real group's moves and best and each capture row's H
+    written once; the band cells of the active rows (W each) at
+    OPS_PER_CELL_ROW."""
+    from unicycler_tpu_torch.ops.tape import MAX_SHIFT
+    from unicycler_tpu_torch.ops.tape_kernels import G
+    GWp = hatn.shape[-1]
+    W = GWp - G * MAX_SHIFT
+    groups = int(ngt.to('cpu').sum())
+    caps = int(((rowinfo >> 8) & 1).sum())
     nbytes = sum(x.numel() * x.element_size() for x in
-                 (rowinfo, gplane, r_flat, moves, hatn, best)
-                 if x is not None)
+                 (rowinfo, gplane, r_flat, ngt)) \
+        + groups * ((G // 8) * GWp * 4 + 8) \
+        + caps * GWp * 4
     cells = int(((rowinfo >> 9) & 1).sum()) * W
     return nbytes, cells * OPS_PER_CELL_ROW, cells
 
@@ -235,14 +254,9 @@ def kernel_costs(timings):
     """Device time, bytes, operations, work (cells of a forward kernel,
     steps of a walker) and bound per kernel over a run's timed launches
     (cuda_lib.TIMINGS entries)."""
-    from unicycler_tpu_torch.ops.tape import MAX_SHIFT
-    from unicycler_tpu_torch.ops.tape_kernels import G
     costs = {'wavetape_fwd': wave_fwd_cost, 'wavetape_walk': wave_walk_cost,
              'tape_walk': tape_walk_cost, 'banded': banded_cost,
-             'banded_walk': banded_walk_cost,
-             # the row region frame is the band plus the in-group drift
-             'tape_fwd': lambda *o: tape_fwd_cost(
-                 *o, o[4].shape[-1] - G * MAX_SHIFT)}
+             'banded_walk': banded_walk_cost, 'tape_fwd': tape_fwd_cost}
     totals = {}
     for name, ev0, ev1, outs in timings:
         agg = totals.setdefault(name, {'ms': 0.0, 'bytes': 0, 'ops': 0,
@@ -344,6 +358,12 @@ def phase_build():
         % (', '.join('W %d: %d x %d threads' % (W, b, t)
                      for W, (b, t) in sorted(occ['wavetape_fwd'].items())),
            occ['wavetape_walk'][0], occ['wavetape_walk'][1]))
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    occ['tape_fwd_clusters'] = {
+        W: {C: tk.resident_clusters(C, W) for C in tk.CLUSTER_SIZES}
+        for W in (4096, 8192)}
+    log('tape_fwd resident clusters (cudaOccupancyMaxActiveClusters), by W '
+        'and blocks a cluster: %s' % json.dumps(occ['tape_fwd_clusters']))
     return secs, occ
 
 
@@ -933,68 +953,190 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
+def row_kernels_against_plain(tp, W, scoring, config, dev, results,
+                              layout):
+    """Both row kernels on one TapeLaunch against their plain versions:
+    the forward at each cluster size C (each launch timed alone), moves,
+    hatn and best bit-equal over each track's real groups; the walker's
+    records and fin bit-equal. One result row each (the forward's one per
+    C, the launch's own C flagged)."""
+    import torch
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.tape import forward_inputs
+    up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
+    bt = up[0].shape[0]
+    rowinfo, gplane, _, _ = tk.tape_prolog(up[0], up[1], up[2], up[3],
+                                           up[5], up[7], up[8], W)
+    ngt = tk.track_groups(up[11])
+    plain_ms, want = cuda_time(
+        lambda: tk.tape_forward_plain(rowinfo, gplane, up[1], scoring,
+                                      config, W, True, ngt=ngt))
+    own = tk.launch_cluster(bt, W, dev)
+    rows_real = 32 * int(ngt.max())
+    line = []
+    for C in tk.CLUSTER_SIZES:
+        fwd = lambda: tk.tape_forward_cuda(rowinfo, gplane, up[1], ngt,
+                                           scoring, config, W, True,
+                                           cluster=C)
+        fwd()
+        ms, out_k = kernel_time(fwd, reps=3)
+        err = max(exact('tape_fwd %s C=%d %s' % (layout, C, n), a, b)
+                  for n, a, b in zip(('moves', 'hatn', 'best'),
+                                     tk.real_rows(*out_k, ngt), want))
+        nbytes, ops, cells = tape_fwd_cost(rowinfo, gplane, up[1], ngt,
+                                           *out_k, C)
+        del out_k
+        results.append({'name': 'tape_fwd', 'W': W, 'bt': bt, 'L': tp.L,
+                        'layout': layout, 'C': C, 'own_C': C == own,
+                        'ms': ms, 'us_per_row': 1e3 * ms / rows_real,
+                        'plain_ms': plain_ms,
+                        'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
+                        'cells': cells, 'max_abs_err': err})
+        line.append('C=%d %.3f ms (%.3f us/row)%s'
+                    % (C, ms, 1e3 * ms / rows_real, '*' if C == own else ''))
+    del want
+
+    score, ei, ej, moves, (c_rel, jr_rows) = tk.tape_forward(
+        *up, scoring=scoring, config=config, W=W, need_moves=True)
+    valid = up[6] > 0
+    zero = torch.zeros_like(ei)
+    wargs = [x.to(torch.int32).contiguous() for x in
+             (moves, c_rel, jr_rows, torch.from_numpy(tp.n_tasks).to(dev),
+              torch.where(valid, up[8] + ei, zero),
+              torch.where(valid, ej, zero),
+              torch.where(valid, up[8], zero))]
+    walk = lambda: tk.tape_traceback_cuda(*wargs, W)
+    walk()
+    wms, (rec_k, fin_k) = kernel_time(walk, reps=3)
+    wplain_ms, (rec_p, fin_p) = cuda_time(
+        lambda: tk.tape_traceback_plain(*wargs, W))
+    werr = max(exact('tape_walk records', rec_k, rec_p),
+               exact('tape_walk fin', fin_k, fin_p))
+    wbytes, wops, steps = tape_walk_cost(rec_k, fin_k)
+    results.append({'name': 'tape_walk', 'W': W, 'bt': bt, 'L': tp.L,
+                    'layout': layout, 'ms': wms, 'plain_ms': wplain_ms,
+                    'bound_ms': bound_ms(wbytes, wops), 'bytes': wbytes,
+                    'steps': steps, 'max_abs_err': werr})
+    log('%s layout W=%4d tracks=%2d L=%5d (longest %d rows)  fwd %s (plain '
+        '%.0f ms)  walk %.3f ms (plain %.0f ms, %d steps)  bit-equal'
+        % (layout, W, bt, tp.L, rows_real, ', '.join(line), plain_ms, wms,
+           wplain_ms, steps))
+
+
+def bridging_like_tasks(rng, n_tasks):
+    """Tasks shaped like phase 7's banded pairs: a read's stretch against
+    a repeat-and-flank window of 1,300-5,200 bp, the reads' error model,
+    with a corridor bent at the middle."""
+    from unicycler_tpu_torch import synth
+    sizes = [int(x) for x in rng.integers(1300, 5200, n_tasks)]
+    return synth.banded_tasks(rng, sizes, drift=True, sub=0.04, ins=0.02,
+                              dele=0.02)
+
+
+def row_layout_ab(rng, dev, scoring, config, report, n_tasks=84, W=4096):
+    """One set of bridging-shaped tasks through both row kernels in the JAX
+    package's layout (tape.choose_bt tracks) and in the card's (one task a
+    track): device time of each kernel in each (JAX, card, card, JAX), and
+    equal per-task score, ends and decoded CIGARs."""
+    import torch
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.tape import build_row_launches, build_tapes
+    tasks = [bo.BandedTask(*t) for t in bridging_like_tasks(rng, n_tasks)]
+    rows = {}
+    for layout, build in (('jax', build_tapes), ('card', build_row_launches),
+                          ('card', build_row_launches), ('jax', build_tapes)):
+        launches = build(tasks, W, bo.build_corridor)
+        results = [None] * len(tasks)
+        cuda_lib.TIMINGS = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pending = bo._row_queue(launches, scoring, config, W, True, dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+        grouped = bo._tape_collect(pending)
+        retry = bo._tape_decode(results, list(range(len(tasks))), pending,
+                                grouped, True, config)
+        per = kernel_costs(timings)
+        row = {'launches': len(launches),
+               'tracks': [tp.qf.shape[0] for tp in launches],
+               'clusters': [tk.launch_cluster(tp.qf.shape[0], W, dev)
+                            for tp in launches],
+               'rows': [tp.L for tp in launches],
+               'fwd_ms': per['tape_fwd']['ms'],
+               'walk_ms': per['tape_walk']['ms'],
+               'fwd_bound_ms': per['tape_fwd']['bound_ms'],
+               'walk_bound_ms': per['tape_walk']['bound_ms'],
+               'queue_wall_s': wall, 'retry': len(retry)}
+        if layout in rows:
+            rows[layout]['repeat'] = row
+            if results != rows[layout]['results']:
+                raise AssertionError('%s layout: two runs differ' % layout)
+            continue
+        row['results'] = results
+        rows[layout] = row
+    a, b = rows['jax'].pop('results'), rows['card'].pop('results')
+    same = sum(x == y for x, y in zip(a, b))
+    bases = sum(len(t.q) for t in tasks)
+    log('A/B on %d bridging-shaped tasks (%d bp, W %d): JAX layout %d '
+        'launches of %s tracks: fwd %.2f ms, walk %.2f ms; card layout %d '
+        'launches of %s tracks, clusters of %s: fwd %.2f ms, walk %.2f ms '
+        '(bound %.3f / %.5f ms); repeats %.2f / %.2f and %.2f / %.2f ms; '
+        '%d/%d tasks equal (score, ends, CIGAR)'
+        % (len(tasks), bases, W, rows['jax']['launches'],
+           rows['jax']['tracks'], rows['jax']['fwd_ms'],
+           rows['jax']['walk_ms'], rows['card']['launches'],
+           rows['card']['tracks'], rows['card']['clusters'],
+           rows['card']['fwd_ms'], rows['card']['walk_ms'],
+           rows['card']['fwd_bound_ms'], rows['card']['walk_bound_ms'],
+           rows['card']['repeat']['fwd_ms'],
+           rows['card']['repeat']['walk_ms'], rows['jax']['repeat']['fwd_ms'],
+           rows['jax']['repeat']['walk_ms'], same, len(tasks)))
+    report['row_ab'] = dict(rows, tasks=len(tasks), bases=bases, W=W,
+                            equal=same)
+    if same != len(tasks):
+        raise AssertionError('the two row layouts differ on %d tasks'
+                             % (len(tasks) - same))
+
+
 def phase_tape_kernels(rng, dev, results, report):
-    """The row-tape forward kernel and walker against their plain versions
-    at the bridging path's widths; the full-matrix DP timed on the card."""
+    """The row-tape forward kernel (at each cluster size) and walker
+    against their plain versions at the bridging path's widths, in both
+    layouts; an A/B of the layouts on bridging-shaped tasks; the
+    full-matrix DP timed on the card."""
     import torch
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.ops import banded as bo
     from unicycler_tpu_torch.ops import pairwise as pw
-    from unicycler_tpu_torch.ops import tape_kernels as tk
     from unicycler_tpu_torch.ops.encode import pack_pairs
-    from unicycler_tpu_torch.ops.tape import build_tapes, forward_inputs
+    from unicycler_tpu_torch.ops.tape import build_row_launches, build_tapes
 
     log('== phase 6: row-tape kernels against their plain versions')
     scoring = pw.Scoring(3, -6, -5, -2)
     config = pw.FULLY_GLOBAL
+    # the JAX package's layout (several tasks a track) at 8 and 32 tracks
     for W, bt, size in ((4096, 8, 1200), (4096, 32, 1200), (8192, 8, 1200),
                         (8192, 32, 900)):
         tasks = [bo.BandedTask(*t) for t in
                  synth.banded_tasks(rng, [size] * bt, drift=True)]
         tp = build_tapes(tasks, W, bo.build_corridor, bt=bt)[0]
-        up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
-        rowinfo, gplane, _, _ = tk.tape_prolog(up[0], up[1], up[2], up[3],
-                                               up[5], up[7], up[8], W)
-        fwd = lambda: tk.tape_forward_cuda(rowinfo, gplane, up[1], scoring,
-                                           config, W, True)
-        fwd()
-        ms, out_k = cuda_time(fwd, reps=3)
-        plain_ms, out_p = cuda_time(
-            lambda: tk.tape_forward_plain(rowinfo, gplane, up[1], scoring,
-                                          config, W, True))
-        err = max(exact('tape_fwd ' + n, a, b) for n, a, b in
-                  zip(('moves', 'hatn', 'best'), out_k, out_p))
-        nbytes, ops, cells = tape_fwd_cost(rowinfo, gplane, up[1], *out_k,
-                                           W)
-        results.append({'name': 'tape_fwd', 'W': W, 'bt': bt, 'L': tp.L,
-                        'ms': ms, 'plain_ms': plain_ms,
-                        'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
-                        'cells': cells, 'max_abs_err': err})
-
-        score, ei, ej, moves, (c_rel, jr_rows) = tk.tape_forward(
-            *up, scoring=scoring, config=config, W=W, need_moves=True)
-        valid = up[6] > 0
-        zero = torch.zeros_like(ei)
-        wargs = [x.to(torch.int32).contiguous() for x in
-                 (moves, c_rel, jr_rows, torch.from_numpy(tp.n_tasks).to(dev),
-                  torch.where(valid, up[8] + ei, zero),
-                  torch.where(valid, ej, zero),
-                  torch.where(valid, up[8], zero))]
-        walk = lambda: tk.tape_traceback_cuda(*wargs, W)
-        walk()
-        wms, (rec_k, fin_k) = cuda_time(walk, reps=3)
-        wplain_ms, (rec_p, fin_p) = cuda_time(
-            lambda: tk.tape_traceback_plain(*wargs, W))
-        werr = max(exact('tape_walk records', rec_k, rec_p),
-                   exact('tape_walk fin', fin_k, fin_p))
-        wbytes, wops, steps = tape_walk_cost(rec_k, fin_k)
-        results.append({'name': 'tape_walk', 'W': W, 'bt': bt, 'L': tp.L,
-                        'ms': wms, 'plain_ms': wplain_ms,
-                        'bound_ms': bound_ms(wbytes, wops), 'bytes': wbytes,
-                        'steps': steps, 'max_abs_err': werr})
-        log('W=%4d bt=%2d L=%5d  fwd %.3f ms (plain %.0f ms)  walk %.3f ms '
-            '(plain %.0f ms, %d steps)  bit-equal'
-            % (W, bt, tp.L, ms, plain_ms, wms, wplain_ms, steps))
+        row_kernels_against_plain(tp, W, scoring, config, dev, results,
+                                  'jax')
+    # the card's layout (one task a track): 12 tracks of mixed lengths,
+    # about a bridging call's banded pairs
+    for W in (4096, 8192):
+        sizes = [int(x) for x in rng.integers(600, 1300, 12)]
+        tasks = [bo.BandedTask(*t) for t in
+                 synth.banded_tasks(rng, sizes, drift=True)]
+        launches = build_row_launches(tasks, W, bo.build_corridor)
+        if len(launches) != 1 or launches[0].qf.shape[0] != len(tasks):
+            raise AssertionError('12 short tasks did not make one launch '
+                                 'of 12 tracks')
+        row_kernels_against_plain(launches[0], W, scoring, config, dev,
+                                  results, 'card')
+    row_layout_ab(rng, dev, scoring, config, report)
 
     # the full-matrix DP (torch ops; no hand-written kernel yet) at the
     # shape of a 1,300 bp repeat's consensus: 12 reads against one
@@ -1057,7 +1199,8 @@ def phase_bridging(args, dev, report, workload=None):
         create_long_read_bridges
     from unicycler_tpu_torch.graph.assembly_graph import AssemblyGraph
     from unicycler_tpu_torch.io.fastx import Read, Reference
-    from unicycler_tpu_torch.ops import cuda_lib, dispatch
+    from unicycler_tpu_torch.ops import banded, cuda_lib, dispatch
+    from unicycler_tpu_torch.ops import tape as tape_ops
     from unicycler_tpu_torch.utils import trace
 
     log('== phase 7: bridging (create_long_read_bridges on %s)' % dev)
@@ -1096,9 +1239,19 @@ def phase_bridging(args, dev, report, workload=None):
         5.0)
     anchors = [graph.segments[n] for n in anchor_nums]
 
-    # observe every alignment of consensus and path scoring
+    # observe every alignment of consensus and path scoring, and every
+    # banded call with its results
     captured = []
+    banded_calls = []
     inner = dispatch.batch_align
+    inner_banded = banded.align_banded
+
+    def observed_banded(tasks, scoring, config=None, band=25,
+                        need_cigar=True, device=None):
+        out = inner_banded(tasks, scoring, config=config, band=band,
+                           need_cigar=need_cigar, device=device)
+        banded_calls.append((tasks, scoring, config, band, need_cigar, out))
+        return out
 
     def observed(q_list, r_list, scoring, config, band=1000, need_cigar=True,
                  device=None):
@@ -1113,6 +1266,7 @@ def phase_bridging(args, dev, report, workload=None):
     trace.enable()
     cuda_lib.TIMINGS = []
     dispatch.batch_align = observed
+    banded.align_banded = observed_banded
     sync(dev)
     cuda_lib.reset_launches()
     t0 = time.time()
@@ -1123,6 +1277,7 @@ def phase_bridging(args, dev, report, workload=None):
         sync(dev)
     finally:
         dispatch.batch_align = inner
+        banded.align_banded = inner_banded
     wall = time.time() - t0
     launches = dict(cuda_lib.LAUNCHES)
     timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
@@ -1154,12 +1309,46 @@ def phase_bridging(args, dev, report, workload=None):
     widths = {k[len('tape.rows.'):]: v for k, v in counters.items()
               if k.startswith('tape.rows.W')}
     busy = sum(a['ms'] for a in per_kernel.values())
+    # every row forward launch: tracks, cluster size, SMs busy, time
+    row_launches = [
+        {'tracks': outs[0].shape[0], 'C': outs[7],
+         'sms': outs[0].shape[0] * outs[7], 'L': outs[0].shape[1],
+         'ms': e0.elapsed_time(e1),
+         'bound_ms': bound_ms(*tape_fwd_cost(*outs)[:2])}
+        for name, e0, e1, outs in timings if name == 'tape_fwd']
+    # the banded calls again in the JAX package's row layout (the parent
+    # commit's), on the card: per-task results must not change
+    row_calls = [c for c in banded_calls
+                 if not banded.use_wavetape(banded.band_width(c[3]))]
+    card_layout = tape_ops.build_row_launches
+    tape_ops.build_row_launches = \
+        lambda t, W, corridor, budget=None: tape_ops.build_tapes(t, W,
+                                                                 corridor)
+    try:
+        replay_same = sum(
+            inner_banded(t, sc, config=cf, band=bd, need_cigar=nc,
+                         device=dev) == out
+            for t, sc, cf, bd, nc, out in row_calls)
+    finally:
+        tape_ops.build_row_launches = card_layout
+    digest = hashlib.sha256(json.dumps(sorted(
+        (b.start_segment, b.end_segment, list(b.graph_path),
+         round(float(b.quality), 6)) for b in bridges)).encode()).hexdigest()
     log('alignment: %.2f s wall, launches %s'
         % (align_wall, json.dumps(align_launches)))
     log('bridging: %.2f s wall, %d bridges, kernel launches %s'
         % (wall, len(bridges), json.dumps(launches)))
-    log('row-tape launch widths (tape rows by W and tracks): %s'
-        % json.dumps(widths))
+    log('row-tape padded rows by W: %s; row forward launches (tracks, '
+        'blocks a track, SMs busy, L, ms, bound ms): %s'
+        % (json.dumps(widths), json.dumps(
+            [(r['tracks'], r['C'], r['sms'], r['L'], round(r['ms'], 3),
+              round(r['bound_ms'], 4)) for r in row_launches])))
+    log('row-tape counters: %s' % json.dumps(
+        {k: v for k, v in sorted(counters.items())
+         if k.startswith('tape.')}))
+    log('banded calls of W > 2048 replayed in the JAX package\'s row layout '
+        '(the parent commit\'s): %d/%d give the same results; bridges '
+        'sha256 %s' % (replay_same, len(row_calls), digest))
     log('pairs: %d full-matrix DP, %d banded; %d alignments re-tallied, %d '
         'degenerate (empty CIGAR)'
         % (counters.get('dispatch.full_dp_pairs', 0),
@@ -1179,7 +1368,10 @@ def phase_bridging(args, dev, report, workload=None):
         'planted': len(truth), 'bridged': len(found), 'true_path': right,
         'alignments': len(captured), 'degenerate': degenerate,
         'launches': launches, 'align_launches': align_launches,
-        'per_kernel': per_kernel, 'counters': counters, 'spans': spans}
+        'per_kernel': per_kernel, 'counters': counters, 'spans': spans,
+        'row_launches': row_launches, 'row_calls': len(row_calls),
+        'row_calls_same_in_jax_layout': replay_same,
+        'bridges_sha256': digest}
     if missing:
         raise AssertionError('planted adjacencies without a bridge: %s'
                              % missing)
@@ -1192,9 +1384,15 @@ def phase_bridging(args, dev, report, workload=None):
     if launches['tape_fwd'] <= 0 or launches['tape_walk'] <= 0:
         raise AssertionError('bridging did not go through the row-tape '
                              'kernels')
+    if replay_same != len(row_calls):
+        raise AssertionError('%d banded calls differ from the JAX package\'s '
+                             'row layout' % (len(row_calls) - replay_same))
+    if counters.get('tape.short_launches', 0):
+        raise AssertionError('row launches below min(tasks, 132) tracks that '
+                             'the moves budget could hold')
     if counters.get('dispatch.full_dp_pairs', 0) <= 0:
         raise AssertionError('bridging did not run the full-matrix DP')
-    return launches, per_kernel, widths
+    return launches, per_kernel
 
 
 def microbench_tasks(n, W, drift, B=8, seed=0):
@@ -1545,8 +1743,7 @@ def main():
     retry_launches = phase_retry(args, dev, kres, report)
     phase_tape_kernels(np.random.default_rng(args.seed + 2), dev, kres,
                        report)
-    bridge_launches, bridge_kernels, widths = phase_bridging(args, dev,
-                                                              report)
+    bridge_launches, bridge_kernels = phase_bridging(args, dev, report)
     wavefront_launches, wavefront_ms = phase_wavefront(dev, kres, report)
     asm_launches, asm_kernels = phase_assembly(args, dev, report)
     assert 'jax' not in sys.modules
@@ -1565,15 +1762,15 @@ def main():
                                'unicycler_tpu/ops/pallas_traceback.py:150'),
                'wavefront_fwd': ('unicycler_tpu_torch/csrc/wavefront_fwd.cu',
                                  'unicycler_tpu/ops/pallas_wavefront.py:312')}
-    # the row-tape kernels' summary row is the bridging phase's commonest
-    # launch shape; the wave kernels' the assembly's (the card's layout at
-    # W 512); the others' the widest main-path shape measured
-    main_shape = max(widths, key=widths.get) if widths else ''
+    # the row-tape kernels' summary row is phase 6's card layout at the
+    # bridging path's W 4096 (the forward at the launch's own cluster
+    # size); the wave kernels' the assembly's (the card's layout at W 512);
+    # the others' the widest main-path shape measured
     kernels = []
     for kname, (src, replaces) in sources.items():
         rows = [r for r in kres if r['name'] == kname]
-        shaped = [r for r in rows
-                  if 'W%d.bt%d' % (r['W'], r['bt']) == main_shape]
+        shaped = [r for r in rows if r.get('layout') == 'card'
+                  and r['W'] == 4096 and r.get('own_C', True)]
         wave = [r for r in rows if r.get('layout') == 'task'
                 and r['W'] == 512]
         if kname.startswith('tape_') and shaped:
@@ -1602,6 +1799,8 @@ def main():
                  > row['bytes'] / PEAK_BYTES_S else 'bytes',
                  'library_ms': None, 'shape': {'W': row['W'],
                                                'bt': row['bt']}}
+        if 'C' in row:
+            entry['shape']['C'] = row['C']
         main_kernels = bridge_kernels if kname.startswith('tape_') \
             else asm_kernels
         if kname in main_kernels:

@@ -221,31 +221,24 @@ def test_gpu_retry_path_matches_cpu():
     assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
 
 
-@pytest.mark.parametrize('bt', [8, 32])
-@pytest.mark.parametrize('W', [4096, 8192])
-@pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
-def test_gpu_tape_kernels_bit_equal_to_plain(cfg, W, bt):
-    """The row-tape forward kernel and walker against their plain
-    versions, at the bands of long-read bridging."""
-    dev = _cuda()
-    from unicycler_tpu_torch.ops import banded as bo
+def _row_kernels_match_plain(tp, scoring, config, W, dev, clusters):
+    """Both row kernels against their plain versions on one TapeLaunch,
+    the forward at each cluster size: moves, hatn and best over each
+    track's real groups, records and fin. Returns the records."""
     from unicycler_tpu_torch.ops import tape_kernels as tk
-    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
-    from unicycler_tpu_torch.ops.tape import build_tapes, forward_inputs
-    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
-    tasks = [bo.BandedTask(*t) for t in
-             tasks_np(29, [180, 333, 90, 400, 260, 700, 150, 520, 64],
-                      drift=True)]
-    tp = build_tapes(tasks, W, bo.build_corridor, bt=bt)[0]
+    from unicycler_tpu_torch.ops.tape import forward_inputs
     up = [torch.from_numpy(x).to(dev) for x in forward_inputs(tp)]
     rowinfo, gplane, _, _ = tk.tape_prolog(up[0], up[1], up[2], up[3],
                                            up[5], up[7], up[8], W)
-    got = tk.tape_forward_cuda(rowinfo, gplane, up[1], scoring, config, W,
-                               True)
+    ngt = tk.track_groups(up[11])
     want = tk.tape_forward_plain(rowinfo, gplane, up[1], scoring, config, W,
-                                 True)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+                                 True, ngt=ngt)
+    for C in clusters:
+        got = tk.real_rows(*tk.tape_forward_cuda(
+            rowinfo, gplane, up[1], ngt, scoring, config, W, True,
+            cluster=C), ngt)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), 'cluster size %d' % C
     score, ei, ej, moves, (c_rel, jr_rows) = tk.tape_forward(
         *up, scoring=scoring, config=config, W=W, need_moves=True)
     valid = up[6] > 0
@@ -257,7 +250,65 @@ def test_gpu_tape_kernels_bit_equal_to_plain(cfg, W, bt):
     rec, fin = tk.tape_traceback_cuda(*args, W)
     rec_p, fin_p = tk.tape_traceback_plain(*args, W)
     assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
+    return rec
+
+
+@pytest.mark.parametrize('bt', [8, 32])
+@pytest.mark.parametrize('W', [4096, 8192])
+@pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
+def test_gpu_tape_kernels_bit_equal_to_plain(cfg, W, bt):
+    """The row-tape forward kernel and walker against their plain
+    versions, at the bands of long-read bridging, on the JAX package's
+    layout (several tasks a track), the forward at the launch's own
+    cluster size."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.tape import build_tapes
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(29, [180, 333, 90, 400, 260, 700, 150, 520, 64],
+                      drift=True)]
+    tp = build_tapes(tasks, W, bo.build_corridor, bt=bt)[0]
+    rec = _row_kernels_match_plain(
+        tp, Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W, dev,
+        [tk.launch_cluster(bt, W, dev)])
     assert int((rec != 0).sum()) > 1000
+
+
+@pytest.mark.parametrize('W', [4096, 8192])
+@pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
+def test_gpu_row_layout_kernels_bit_equal_to_plain(cfg, W):
+    """The card's row layout (one task a track, tracks of different
+    lengths) through the forward kernel at each cluster size 1, 2, 4 and 8
+    and the walker, against their plain versions."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.tape import build_row_launches
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(31, [180, 333, 90, 400, 260, 700, 150, 520, 64, 610],
+                      drift=True)]
+    launches = build_row_launches(tasks, W, bo.build_corridor)
+    assert len(launches) == 1 and launches[0].qf.shape[0] == len(tasks)
+    rec = _row_kernels_match_plain(
+        launches[0], Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W,
+        dev, [1, 2, 4, 8])
+    assert int((rec != 0).sum()) > 2000
+
+
+def test_gpu_cluster_size_fills_the_card():
+    """The launch's cluster size: 8 blocks a track for a few tracks, fewer
+    as the tracks grow, every cluster resident at once."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for W in (4096, 8192):
+        assert tk.launch_cluster(8, W, dev) == 8
+        for tracks in (1, 10, 16, 33, 66, 84, 132, 300):
+            C = tk.launch_cluster(tracks, W, dev)
+            assert C == 1 or (tracks * C <= sms
+                              and tracks <= tk.resident_clusters(C, W))
 
 
 @pytest.mark.parametrize('cfg', ['global', 'path'])

@@ -12,32 +12,77 @@
 // GWp = roundup128(W + 32 * 4) lanes: lane k is reference column jr + k,
 // jr constant over the group, and row i's band is the lane window
 // [d_i, d_i + W) with d_i the in-group drift. Carries realign once per
-// group, left by the group's advance `adv`, with NEG in the vacated tail;
-// a task's first group swaps in the row-0 boundary from its formula.
+// group, left by the group's advance `adv` (at most 128 lanes), with NEG
+// in the vacated tail; a task's first group swaps in the row-0 boundary.
 //
 // What bounds it on an H100: latency of the row chain. Row i needs row
-// i - 1, and E (the horizontal gap) is a prefix maximum across the row, so
-// every row costs a block-wide scan and two block barriers; bytes (one
-// 4-bit move per cell) and operations are far below the card's rates.
-// Only 8-32 tracks run, one block each, so most SMs are idle; this first
-// version is kept simple on purpose.
+// i - 1, and E (the horizontal gap) is a prefix maximum across the row;
+// bytes (one 4-bit move per cell) and operations are far below the card's
+// rates. With one task a track (ops/tape.build_row_launches) a call has
+// only as many tracks as tasks, often 10-30, so one block a track leaves
+// most SMs idle and each row costs one SM's latency.
 //
-// Design: one block per track, up to 1024 threads, each owning PER
-// contiguous lanes whose H and F carries and region bases stay in
-// registers. A row: (1) F, the diagonal and G = max(diag, F) per lane, a
-// serial max over the thread's lanes, a warp scan with shuffles, warp
-// totals to shared memory; barrier; (2) the exclusive prefix of each lane
-// (warp totals + warp scan + serial pass) gives E, then H; the thread's
-// last H and E go to shared memory for its right neighbour; barrier; (3)
-// E's extension bit, the move nibble, captures. The Pallas kernel's
-// windowed prefix max (max_dist = W - 1) is a full prefix max here: lanes
-// left of the window are outside the band, so their candidates sit near
-// NEG and E clamps them back to NEG below NEG/2 either way (the plain
-// version keeps the windowed ladder; the card tests hold the two equal).
-// The group realignment exchanges the carries through shared memory.
+// Design: a thread block cluster of C = 1, 2, 4 or 8 blocks per track (on
+// neighbouring SMs), block `rank` owning the BL = GWp / C contiguous lanes
+// [rank * BL, (rank + 1) * BL); each thread owns PER contiguous lanes whose
+// H and F carries and reference bases stay in registers. A row:
+//   (A) F, the diagonal, G = max(diag, F) and the E candidates per lane, a
+//       serial max over the thread's lanes and a warp scan by shuffles;
+//       the warp's total goes to shared memory. The diagonal of the first
+//       lane of every warp (and of the block) needs the previous row's H
+//       of the lane to its left, which another warp (block) owns: that
+//       lane's candidate is deferred, and its substitution score
+//       published instead; one block barrier;
+//   (B) every warp scans the warp totals (a second shuffle scan, with the
+//       deferred candidates of the warps' first lanes rebuilt from the
+//       previous row's edge H), and the block pushes its total to every
+//       higher rank, and its total without its last lane to rank + 1;
+//   (C) each warp takes the lower ranks' totals (one rank a lane) into the
+//       block's exclusive prefix, and each thread computes E, H, the
+//       extension bits and the move nibble of its lanes in one pass. E's
+//       extension bit at a thread's first lane needs E of the lane to its
+//       left: inside a warp a shuffle of that thread's last E (computed
+//       from its prefix in closed form), at a warp or block edge the same
+//       closed form from the totals without the last lane. The block's
+//       last H goes to rank + 1 for its next row.
+// Blocks exchange a row through mailboxes in shared memory: a producer
+// writes one 8-byte (row, value) word into the consumer's shared memory
+// (distributed shared memory), and the consumer polls its own copy until
+// the row it wants has arrived. Row values flow only from lower ranks to
+// higher ones, so the blocks of a cluster run as a pipeline, each a little
+// behind the rank below it, and no row waits at a cluster barrier (a
+// cluster.sync() loop costs ~750 ns an iteration on an H100, against
+// ~165 ns for a relaxed cluster barrier and ~113 ns for __syncthreads:
+// tools/sync_bench.cu). Per-warp values are double-buffered by row parity, so a
+// row holds one block barrier. A group's realignment pulls the first
+// `adv` lanes of the right neighbour block's carries, which that block
+// pushes as words into a halo mailbox at the end of each group, so a block
+// waits only for its right neighbour there. Mailboxes hold a ring of two
+// groups of rows; before a block writes a row of group g, every higher rank
+// has told it that it finished group g - 2. Each block keeps its own
+// running best last column; the wrapper merges the C of them. A cluster
+// barrier runs only at the start and the end. Each group's 32 rowinfo
+// words, its plane row (two groups ahead) and the block's region bytes are
+// copied into shared memory one group ahead by cp.async. A cluster stops
+// after its track's last real group (ngt): padding is not executed; moves
+// and best past it stay unwritten.
+//
+// Exactness: the Pallas kernel's windowed prefix max (max_dist = W - 1) is
+// a full prefix max here: lanes left of the window are outside the band,
+// so their candidates sit near NEG and E clamps them back to NEG below
+// NEG/2 either way. Ties keep the TPU order (h == diag, then h == e); the
+// extension bits need their predecessor above NEG/2. The running best
+// last column (one lane a row) is kept per thread and merged at each
+// group's end (per block here, over the cluster in the wrapper), largest
+// value first, then earliest row, which is the single-lane running
+// update's result.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -45,6 +90,11 @@ constexpr int NEG = -(1 << 30);
 constexpr int NEG_HALF = -(1 << 29);
 constexpr int G = 32;
 constexpr unsigned FULL = 0xffffffffu;
+// threads a block at most: 128 registers a thread, so a thread's lanes and
+// the row's scalars stay in registers
+constexpr int MAXT = 512;
+constexpr int MAXW = MAXT / 32;
+constexpr int RING = 2 * G;   // rows a mailbox ring holds
 
 // per-(track, group) scalars, in ops/tape_kernels.GP_* order
 enum { GP_JR, GP_M, GP_LB, GP_ADV, GP_RST, GP_C0, GP_RSTART, GP_N = 8 };
@@ -53,13 +103,28 @@ struct Params {
   const int* rowinfo;    // (B, L): d | cap << 8 | active << 9 | q << 16
   const int* gplane;     // (B, L/32, GP_N)
   const int8_t* r_flat;  // (B, M)
+  const int* ngt;        // (B,): real groups of each track
   int* moves;            // (B, L/8, GWp) or null
   int* hatn;             // (L/32, B, GWp), zeroed; written at capture rows
-  int* best;             // (L/32, B, 2): running best last column, its row
-  int B, L, M, W, GWp;
+  int* best;             // (L/32, B, C, 2): each block's running best last
+                         // column and its row (merged over C by the wrapper)
+  int B, L, M, W, GWp, BL, RB;
   int match_s, mismatch, open_, ext;
   int fs1, fs2;
 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 __device__ __forceinline__ int boundary(int j, int m_g, int c0, const Params& p) {
   int h0;
@@ -70,94 +135,222 @@ __device__ __forceinline__ int boundary(int j, int m_g, int c0, const Params& p)
   return (j <= m_g && j >= c0 && j < c0 + p.W) ? h0 : NEG;
 }
 
+// bytes of one staged region buffer: BL bytes from a start aligned down to
+// 16 bytes
+__host__ __device__ __forceinline__ int region_bytes(int BL) { return (BL + 30) / 16 * 16; }
+
+__host__ __device__ __forceinline__ size_t dyn_smem(int BL) {
+  return 8 * (size_t)BL + 2 * (size_t)region_bytes(BL);
+}
+
+// copy group g's rowinfo words and this block's region bytes (from the
+// group's plane row gq) into one buffer of each
+__device__ __forceinline__ void stage_group(const Params& p, int b, int g, const int* gq,
+                                            int* rows_buf, uint8_t* reg_buf, int kb, int tid,
+                                            int nthr) {
+  if (tid < 8) cp_async16(rows_buf + 4 * tid, p.rowinfo + (size_t)b * p.L + (size_t)g * G + 4 * tid);
+  const int8_t* rf = p.r_flat + (size_t)b * p.M;
+  const int s = gq[GP_RSTART] + kb;
+  const int first = s & ~15;
+  const int nch = (s + p.BL - first + 15) >> 4;
+  for (int c = tid; c < nch; c += nthr) cp_async16(reg_buf + 16 * c, rf + first + 16 * c);
+}
+
+// x[i] for a runtime i without indexing the register array
 template <int PER>
-__device__ __forceinline__ void shift_left(int (&x)[PER], int* buf, int k0, int adv,
-                                           int GWp) {
+__device__ __forceinline__ int pick(const int (&x)[PER], int i) {
+  int v = x[0];
 #pragma unroll
-  for (int i = 0; i < PER; ++i) buf[k0 + i] = x[i];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int src = k0 + i + adv;
-    x[i] = src < GWp ? buf[src] : NEG;
+  for (int k = 1; k < PER; ++k)
+    if (k == i) v = x[k];
+  return v;
+}
+
+// (value, row) merge of running bests: the larger value, then the earlier row
+__device__ __forceinline__ void best_merge(int& v, int& ix, int ov, int oi) {
+  if (ov > v || (ov == v && oi < ix)) {
+    v = ov;
+    ix = oi;
   }
-  __syncthreads();
+}
+
+// a (row, value) word of a mailbox: the row tags the value, so a reader
+// polls its own shared memory until the row it wants has arrived, and one
+// 8-byte store carries both
+__device__ __forceinline__ void push(unsigned long long* dst, int row, int v) {
+  *reinterpret_cast<volatile unsigned long long*>(dst) =
+      ((unsigned long long)(unsigned)row << 32) | (unsigned)v;
+}
+
+// a waiting thread sleeps between reads: many warps spinning on shared
+// memory hold off the other blocks' stores into it
+__device__ __forceinline__ int poll(const unsigned long long* src, int row) {
+  unsigned long long w = *reinterpret_cast<const volatile unsigned long long*>(src);
+  while ((unsigned)(w >> 32) != (unsigned)row) {
+    __nanosleep(32);
+    w = *reinterpret_cast<const volatile unsigned long long*>(src);
+  }
+  return (int)(unsigned)w;
+}
+
+// wait until a word's tag is at least `row` (tags only grow)
+__device__ __forceinline__ void poll_ge(const unsigned long long* src, int row) {
+  while ((int)(unsigned)(*reinterpret_cast<const volatile unsigned long long*>(src) >> 32) < row)
+    __nanosleep(32);
 }
 
 template <int PER>
-__global__ void __launch_bounds__(1024) tape_fwd_kernel(Params p) {
-  extern __shared__ int smem[];
-  const int nthr = blockDim.x;
-  int* buf = smem;                  // nthr * PER: realignment exchange
-  int* hedge = buf + nthr * PER;    // each thread's last H
-  int* eedge = hedge + nthr;        // each thread's last E
-  int* wtot = eedge + nthr;         // per-warp scan totals
-  int* bvbi = wtot + 32;            // running best last column, its row
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int k0 = tid * PER;
-  const int GWp = p.GWp, W = p.W;
-  const int open_ = p.open_, ext = p.ext;
+__global__ void __launch_bounds__(MAXT, 1) tape_fwd_kernel(Params p) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
   const int NGR = p.L / G;
-  const int* gp = p.gplane + (size_t)b * NGR * GP_N;
-  const int* rows = p.rowinfo + (size_t)b * p.L;
-  const int8_t* rf = p.r_flat + (size_t)b * p.M;
-  int* mv_out = p.moves ? p.moves + (size_t)b * (p.L / 8) * GWp : nullptr;
+  const int ng = min(p.ngt[b], NGR);
+  if (ng <= 0) return;  // uniform over the cluster
 
-  int h[PER], f[PER], dg[PER], gg[PER], e[PER], mv[PER];
-  int8_t reg[PER];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) int rows_s[2][G];
+  __shared__ __align__(16) int gp_s[3][GP_N];
+  // per-warp values of a row, double-buffered by row parity
+  __shared__ int wtot[2][MAXW], wxl[2][MAXW], wfa[2][MAXW], wfb[2][MAXW], hedge[2][MAXW];
+  __shared__ int wbv[MAXW], wbi[MAXW];
+  // mailboxes, a ring of one word a row over two groups, from rank - 1:
+  // the exclusive prefix of this block's first lane, E's prefix at rank
+  // - 1's last lane, and the previous row's H of that lane; from rank + 1:
+  // its first 128 lanes' H and F at the end of a group (the realignment's
+  // halo) and the last group it finished
+  __shared__ unsigned long long mb_p[RING], mb_x[RING], mb_h[RING];
+  __shared__ unsigned long long hal_h[G * 4], hal_f[G * 4], mb_e;
+  __shared__ int xo_s[2];  // the block's last lane's thread: its part of X
+
+  const int BL = p.BL, RB = p.RB;
+  int* shb = reinterpret_cast<int*>(smem);  // 2 * BL: h, f for the realignment
+  uint8_t* regb = smem + 8 * (size_t)BL;     // 2 buffers of RB region bytes
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
+  const int kb = rank * BL;        // the block's first region lane
+  const int kl0 = tid * PER;       // the thread's first block lane
+  const int k0 = kb + kl0;         // ... and region lane
+  const int last_t = (BL - 1) / PER, last_i = (BL - 1) % PER;  // owner of the block's last lane
+  // the first lane of every warp but the cluster's first defers its diagonal
+  const bool defer = lane == 0 && (warp > 0 || rank > 0);
+  const int W = p.W, GWp = p.GWp, open_ = p.open_, ext = p.ext;
+  int* mv_out = p.moves ? p.moves + (size_t)b * (p.L / 8) * GWp : nullptr;
+  const int* gpl = p.gplane + (size_t)b * NGR * GP_N;
+  // where this block's words go: rank + 1's and rank - 1's mailboxes
+  unsigned long long* nx_p = rank + 1 < C ? cluster.map_shared_rank(&mb_p[0], rank + 1) : nullptr;
+  unsigned long long* nx_x = rank + 1 < C ? cluster.map_shared_rank(&mb_x[0], rank + 1) : nullptr;
+  unsigned long long* pv_e = rank > 0 ? cluster.map_shared_rank(&mb_e, rank - 1) : nullptr;
+  unsigned long long* nx_h = rank + 1 < C ? cluster.map_shared_rank(&mb_h[0], rank + 1) : nullptr;
+  unsigned long long* pv_h = rank > 0 ? cluster.map_shared_rank(&hal_h[0], rank - 1) : nullptr;
+  unsigned long long* pv_f = rank > 0 ? cluster.map_shared_rank(&hal_f[0], rank - 1) : nullptr;
+
+  int h[PER], f[PER];
+  unsigned mv[PER];
+  unsigned regp[(PER + 3) / 4];  // the lanes' reference bases, four a word
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     h[i] = NEG;
     f[i] = NEG;
-    mv[i] = 0;
+    mv[i] = 0u;
   }
-  if (tid == 0) {
-    bvbi[0] = NEG;
-    bvbi[1] = 0;
+  int bv = NEG, bi = 0;  // this thread's running best last column, its row
+  // nothing has arrived (tag -1); no block pushes before all have done this
+  for (int x = tid; x < RING * 3 + G * 8; x += nthr) {
+    if (x < RING) mb_p[x] = ~0ull;
+    else if (x < RING * 2) mb_x[x - RING] = ~0ull;
+    else if (x < RING * 3) mb_h[x - RING * 2] = ~0ull;
+    else if (x < RING * 3 + G * 4) hal_h[x - RING * 3] = ~0ull;
+    else hal_f[x - RING * 3 - G * 4] = ~0ull;
   }
+  if (tid == 0) mb_e = ~0ull;
+  cluster.sync();
 
-  for (int g = 0; g < NGR; ++g) {
-    const int* gq = gp + (size_t)g * GP_N;
+  // prologue: plane rows 0 and 1, then group 0's rows and region bytes
+  if (tid < 2) cp_async16(gp_s[0] + 4 * tid, gpl + 4 * tid);
+  if (tid >= 2 && tid < 4 && ng > 1) cp_async16(gp_s[1] + 4 * (tid - 2), gpl + GP_N + 4 * (tid - 2));
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  stage_group(p, b, 0, gp_s[0], rows_s[0], regb, kb, tid, nthr);
+  cp_async_commit();
+
+  for (int g = 0; g < ng; ++g) {
+    // group g's copies have landed and the block has finished group g - 1
+    // (its carries are in shb, its per-warp running bests in wbv / wbi);
+    // start the copies of group g + 1 (plane row g + 2). Before this block
+    // pushes a row of group g into a ring slot of group g - 2, rank + 1
+    // has finished group g - 2.
+    cp_async_wait_all();
+    __syncthreads();
+    if (g > 0 && warp == 0) {
+      int v = lane < nwarps ? wbv[lane] : INT_MIN, ix = lane < nwarps ? wbi[lane] : INT_MAX;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        best_merge(v, ix, __shfl_xor_sync(FULL, v, o), __shfl_xor_sync(FULL, ix, o));
+      if (lane == 0) {
+        int* o = p.best + (((size_t)(g - 1) * p.B + b) * C + rank) * 2;
+        o[0] = v;
+        o[1] = ix;
+      }
+    }
+    if (g > 0 && tid == 0 && pv_e) push(pv_e, g - 1, 0);  // read all of group g - 1
+    if (g >= 2 && (tid == 0 || tid == last_t) && nx_p) poll_ge(&mb_e, g - 2);
+    if (g + 2 < ng && tid < 2)
+      cp_async16(gp_s[(g + 2) % 3] + 4 * tid, gpl + (size_t)(g + 2) * GP_N + 4 * tid);
+    if (g + 1 < ng)
+      stage_group(p, b, g + 1, gp_s[(g + 1) % 3], rows_s[(g + 1) & 1], regb + ((g + 1) & 1) * RB, kb,
+                  tid, nthr);
+    cp_async_commit();
+
+    const int* gq = gp_s[g % 3];
     const int jr = gq[GP_JR], m_g = gq[GP_M], lb = gq[GP_LB];
     const int adv = gq[GP_ADV], rst = gq[GP_RST], c0 = gq[GP_C0];
     const int rstart = gq[GP_RSTART];
-    __syncthreads();  // the previous group's rows are done
-    if (tid == 0) {
-      if (g > 0) {
-        p.best[((size_t)(g - 1) * p.B + b) * 2] = bvbi[0];
-        p.best[((size_t)(g - 1) * p.B + b) * 2 + 1] = bvbi[1];
+    if (!rst && adv > 0) {  // uniform over the cluster
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int kl = kl0 + i;
+        if (kl >= BL) continue;
+        const int src = kl + adv;  // adv <= 128 <= BL: at most the right neighbour
+        if (src < BL) {
+          h[i] = shb[src];
+          f[i] = shb[BL + src];
+        } else if (rank + 1 < C) {  // its halo, pushed at the end of group g - 1
+          h[i] = poll(&hal_h[src - BL], g);
+          f[i] = poll(&hal_f[src - BL], g);
+        } else {
+          h[i] = NEG;
+          f[i] = NEG;
+        }
       }
-      if (rst) {
-        bvbi[0] = NEG;
-        bvbi[1] = 0;
-      }
-    }
-    if (!rst && adv > 0) {  // uniform over the block
-      shift_left<PER>(h, buf, k0, adv, GWp);
-      shift_left<PER>(f, buf, k0, adv, GWp);
     }
     if (rst) {
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
-        h[i] = boundary(jr + k0 + i, m_g, c0, p);
+        h[i] = kl0 + i < BL ? boundary(jr + k0 + i, m_g, c0, p) : NEG;
         f[i] = NEG;
       }
+      bv = NEG;
+      bi = 0;
     }
     const int h0m1 = boundary(jr - 1, m_g, c0, p);
+    const uint8_t* rb = regb + (g & 1) * RB + ((rstart + kb) & 15);
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int k = k0 + i;
-      reg[i] = k < GWp ? rf[rstart + k] : (int8_t)-1;
-    }
-    hedge[tid] = h[PER - 1];
-    __syncthreads();
+    for (int i = 0; i < (PER + 3) / 4; ++i) regp[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      regp[i >> 2] |= (unsigned)(kl0 + i < BL ? rb[kl0 + i] : 0xFFu) << (8 * (i & 3));
+    // the edges the first row's deferred diagonals read (row g * G is even)
+    if (lane == 31) hedge[0][warp] = h[PER - 1];
+    if (tid == last_t && nx_h) push(&nx_h[(g * G) % RING], g * G, pick(h, last_i));
 
+    const int* rws = rows_s[g & 1];
     for (int r = 0; r < G; ++r) {
       const int t = g * G + r;
-      const int rowv = rows[t];
+      const int pb = t & 1;
+      const int rowv = rws[r];
       const int d = rowv & 255;
       const bool cap = (rowv >> 8) & 1;
       const bool act = (rowv >> 9) & 1;
@@ -165,28 +358,44 @@ __global__ void __launch_bounds__(1024) tape_fwd_kernel(Params p) {
       const int local_i = lb + r;
       const int m_col = act ? m_g : -1;
 
-      // (1) F, diagonal, G; serial max of this thread's E candidates
-      int prev = tid == 0 ? ((r == 0 && rst) ? h0m1 : NEG) : hedge[tid - 1];
-      unsigned long long fext = 0;
-      int run = NEG;
+      // (A) F, diagonal, G and the E candidates; warp scan
+      const int hleft = __shfl_up_sync(FULL, h[PER - 1], 1);
+      int prev = lane > 0 ? hleft : ((warp == 0 && rank == 0 && r == 0 && rst) ? h0m1 : NEG);
+      // per-lane bits of the row, for the second pass: F's extension, E/F
+      // valid, H valid, column 0, base match
+      unsigned fext = 0u, bef = 0u, bh = 0u, bc0 = 0u, bmt = 0u;
+      int run = NEG, runx = NEG, runl = NEG;
+      int fa = 0, fb = 0;
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int k = k0 + i;
         const int j = jr + k;
-        const bool vb = k >= d && k < d + W;
+        const bool own = kl0 + i < BL;
+        const bool vb = own && k >= d && k < d + W;
         const bool vef = vb && j >= 1 && j <= m_col;
         const bool c0l = vb && j == 0 && m_col >= 0;
+        const bool mt = (int)((regp[i >> 2] >> (8 * (i & 3))) & 0xFFu) == qv;
+        bef |= (unsigned)vef << i;
+        bh |= (unsigned)(vb && j >= 0 && j <= m_col) << i;
+        bc0 |= (unsigned)c0l << i;
+        bmt |= (unsigned)mt << i;
         const int fe = f[i] + ext;
         const int fnew = max(h[i] + open_, fe);
-        if (fnew == fe && f[i] > NEG_HALF) fext |= 1ull << i;
+        if (fnew == fe && f[i] > NEG_HALF) fext |= 1u << i;
         f[i] = fnew;
-        const int sub = reg[i] == qv ? p.match_s : p.mismatch;
+        const int sub = mt ? p.match_s : p.mismatch;
         int dgv = vef ? prev + sub : NEG;
         if (c0l) dgv = p.fs1 ? 0 : open_ + (local_i - 1) * ext;
+        if (i == 0 && defer) {
+          fa = vef;
+          fb = sub;
+          if (vef) dgv = NEG;
+        }
         prev = h[i];
-        dg[i] = dgv;
-        gg[i] = max(dgv, vef ? fnew : NEG);
-        run = max(run, gg[i] + open_ - (k + 1) * ext);
+        const int cand = own ? max(dgv, vef ? fnew : NEG) + open_ - (k + 1) * ext : NEG;
+        run = max(run, cand);
+        if (i < PER - 1) runx = max(runx, cand);
+        if (i < last_i) runl = max(runl, cand);
       }
       int incl = run;
 #pragma unroll
@@ -195,92 +404,265 @@ __global__ void __launch_bounds__(1024) tape_fwd_kernel(Params p) {
         if (lane >= off) incl = max(incl, v);
       }
       int excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = NEG;
-      if (lane == 31) wtot[warp] = incl;
+      if (lane == 0) {
+        excl = NEG;
+        wfa[pb][warp] = fa;
+        wfb[pb][warp] = fb;
+      }
+      if (tid == last_t) xo_s[pb] = max(excl, runl);
+      if (lane == 31) {
+        wtot[pb][warp] = incl;
+        wxl[pb][warp] = max(excl, runx);
+      }
       __syncthreads();
 
-      // (2) E from the exclusive prefix max, then H
-      int pre = excl;
-      for (int w = 0; w < warp; ++w) pre = max(pre, wtot[w]);
+      // (B) scan over the warps, each warp's deferred first lane included
+      // (the block's first lane's from rank - 1's last H)
+      int hb = NEG;  // the previous row's H left of the block's first lane
+      const int ring = t % RING;
+      if (lane == 0 && rank > 0 && wfa[pb][0]) hb = poll(&mb_h[ring], t);
+      int Tw = NEG, Xw = NEG, Dw = NEG;
+      if (lane < nwarps) {
+        Tw = wtot[pb][lane];
+        Xw = wxl[pb][lane];
+        if (wfa[pb][lane])
+          Dw = (lane > 0 ? hedge[pb][lane - 1] : hb) + wfb[pb][lane] + open_ -
+               (kb + lane * 32 * PER + 1) * ext;
+      }
+      int wi = max(Tw, Dw);
+      for (int off = 1; off < nwarps; off <<= 1) {
+        const int v = __shfl_up_sync(FULL, wi, off);
+        if (lane >= off) wi = max(wi, v);
+      }
+      int wex = __shfl_up_sync(FULL, wi, 1);
+      if (lane == 0) wex = NEG;
+      const int offw = __shfl_sync(FULL, wex, warp);
+      const int Dme = __shfl_sync(FULL, Dw, warp);
+      const int Mb = __shfl_sync(FULL, wi, nwarps - 1);
+      const int wm = warp > 0 ? warp - 1 : 0;
+      const int offp = __shfl_sync(FULL, wex, wm);
+      const int Dp = __shfl_sync(FULL, Dw, wm);
+      const int Xp = __shfl_sync(FULL, Xw, wm);
+      const int hw = (defer && warp > 0) ? hedge[pb][warp - 1] : hb;
+      // the block's candidates but its last lane's (X), for E at rank +
+      // 1's first lane
+      const int ow = last_t >> 5;
+      const int Xb = max(max(__shfl_sync(FULL, wex, ow),
+                             ((last_t & 31) == 0 && last_i == 0) ? NEG : __shfl_sync(FULL, Dw, ow)),
+                         xo_s[pb]);
+
+      // (C) the prefix of all lower ranks, from rank - 1; rank + 1's, and
+      // E's prefix at this block's last lane, to rank + 1
+      int P = NEG;
+      if (rank > 0) {
+        if (lane == 0) P = poll(&mb_p[ring], t);
+        P = __shfl_sync(FULL, P, 0);
+      }
+      if (tid == 0 && nx_p) {
+        push(&nx_p[ring], t, max(P, Mb));
+        push(&nx_x[ring], t, max(P, Xb));
+      }
+
+      // the exclusive prefix at this thread's first lane
+      int pre = max(P, max(offw, excl));
+      if (lane > 0) pre = max(pre, Dme);
+      // E of this thread's last lane, in closed form, for the thread to its
+      // right; E of the lane left of this thread's first lane
+      {
+        int lpre = max(pre, runx);
+        if (PER > 1 && defer) lpre = max(lpre, Dme);
+        const int eL = lpre + (k0 + PER - 1) * ext;
+        lpre = (((bef >> (PER - 1)) & 1u) && eL > NEG_HALF) ? eL : NEG;
+        prev = __shfl_up_sync(FULL, lpre, 1);
+      }
+      int ep = prev;
+      if (lane == 0) {
+        ep = NEG;
+        if (warp > 0 || rank > 0) {
+          const int px = warp > 0 ? max(max(P, offp), max(Dp, Xp)) : poll(&mb_x[ring], t);
+          const int kp = k0 - 1;
+          const int jp = jr + kp;
+          const bool vefp = kp >= d && kp < d + W && jp >= 1 && jp <= m_col;
+          const int e = px + kp * ext;
+          ep = (vefp && e > NEG_HALF) ? e : NEG;
+        }
+      }
+
+      // the diagonal again (phase A's values are not kept, to spare
+      // registers), the deferred one now whole
+      int hp = defer ? hw : (lane > 0 ? hleft
+                                      : ((warp == 0 && rank == 0 && r == 0 && rst) ? h0m1 : NEG));
+      const int sh = 4 * (t & 7);
+      const int col0 = p.fs1 ? 0 : open_ + (local_i - 1) * ext;
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int k = k0 + i;
-        const int j = jr + k;
-        const bool vb = k >= d && k < d + W;
-        const bool vef = vb && j >= 1 && j <= m_col;
-        const bool vh = vb && j >= 0 && j <= m_col;
+        const bool own = kl0 + i < BL;
+        const bool vef = (bef >> i) & 1u;
+        const bool vh = (bh >> i) & 1u;
+        int dgv = vef ? hp + (((bmt >> i) & 1u) ? p.match_s : p.mismatch) : NEG;
+        if ((bc0 >> i) & 1u) dgv = col0;
+        hp = h[i];
+        const int gg = max(dgv, vef ? f[i] : NEG);
         int ev = pre + k * ext;
         ev = (vef && ev > NEG_HALF) ? ev : NEG;
-        pre = max(pre, gg[i] + open_ - (k + 1) * ext);
-        e[i] = ev;
-        h[i] = vh ? max(gg[i], ev) : NEG;
-      }
-      hedge[tid] = h[PER - 1];
-      eedge[tid] = e[PER - 1];
-      __syncthreads();
-
-      // (3) E's extension bit, the move nibble, last column, capture
-      int ep = tid == 0 ? NEG : eedge[tid - 1];
-      const int sh = 4 * (t & 7);
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int k = k0 + i;
-        const int j = jr + k;
+        if (own) pre = max(pre, gg + open_ - (k + 1) * ext);
+        const int hn = vh ? max(gg, ev) : NEG;
         if (mv_out) {
-          const bool eext = e[i] == ep + ext && ep > NEG_HALF;
-          const int hsrc = h[i] == dg[i] ? 0 : (h[i] == e[i] ? 1 : 2);
-          const int m4 = hsrc | (eext ? 4 : 0) | (((fext >> i) & 1ull) ? 8 : 0);
-          mv[i] = sh == 0 ? m4 : (int)((unsigned)mv[i] | ((unsigned)m4 << sh));
-          if ((t & 7) == 7 && k < GWp) mv_out[(size_t)(t >> 3) * GWp + k] = mv[i];
+          const bool eext = ev == ep + ext && ep > NEG_HALF;
+          const unsigned hsrc = hn == dgv ? 0u : (hn == ev ? 1u : 2u);
+          const unsigned m4 = hsrc | (eext ? 4u : 0u) | (((fext >> i) & 1u) ? 8u : 0u);
+          mv[i] = sh == 0 ? m4 : (mv[i] | (m4 << sh));
+          if ((t & 7) == 7 && own) mv_out[(size_t)(t >> 3) * GWp + k] = (int)mv[i];
         }
-        ep = e[i];
-        const bool vb = k >= d && k < d + W;
-        if (vb && j == m_col && h[i] > bvbi[0]) {  // one lane per row
-          bvbi[0] = h[i];
-          bvbi[1] = local_i;
+        ep = ev;
+        if (vh && jr + k == m_col && hn > bv) {  // one lane per row
+          bv = hn;
+          bi = local_i;
         }
-        if (cap && k < GWp) p.hatn[((size_t)g * p.B + b) * GWp + k] = h[i];
+        if (cap && own) p.hatn[((size_t)g * p.B + b) * GWp + k] = hn;
+        h[i] = hn;
+      }
+      // this row's edge H for the next row's deferred diagonals (the next
+      // group's first row takes its edges after the realignment)
+      if (r < G - 1) {
+        if (lane == 31) hedge[pb ^ 1][warp] = h[PER - 1];
+        if (tid == last_t && nx_h) push(&nx_h[(t + 1) % RING], t + 1, pick(h, last_i));
+      }
+    }
+
+    // the group's running best: per warp here, merged over the cluster by
+    // rank 0 after the next cluster barrier; the carries for the next
+    // group's realignment
+    int v = bv, ix = bi;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      best_merge(v, ix, __shfl_xor_sync(FULL, v, o), __shfl_xor_sync(FULL, ix, o));
+    if (lane == 0) {
+      wbv[warp] = v;
+      wbi[warp] = ix;
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int kl = kl0 + i;
+      if (kl < BL) {
+        shb[kl] = h[i];
+        shb[BL + kl] = f[i];
+        if (pv_h && kl < G * 4 && g + 1 < ng) {  // rank - 1's halo
+          push(&pv_h[kl], g + 1, h[i]);
+          push(&pv_f[kl], g + 1, f[i]);
+        }
       }
     }
   }
   __syncthreads();
-  if (tid == 0 && NGR > 0) {
-    p.best[((size_t)(NGR - 1) * p.B + b) * 2] = bvbi[0];
-    p.best[((size_t)(NGR - 1) * p.B + b) * 2 + 1] = bvbi[1];
+  if (warp == 0) {
+    int v = lane < nwarps ? wbv[lane] : INT_MIN, ix = lane < nwarps ? wbi[lane] : INT_MAX;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      best_merge(v, ix, __shfl_xor_sync(FULL, v, o), __shfl_xor_sync(FULL, ix, o));
+    if (lane == 0) {
+      int* o = p.best + (((size_t)(ng - 1) * p.B + b) * C + rank) * 2;
+      o[0] = v;
+      o[1] = ix;
+    }
   }
+  cluster.sync();  // no block leaves while another may still write to it
+}
+
+// lanes a thread for a block of BL lanes (0: too wide)
+int lanes_per_thread(int BL) {
+  for (int per : {2, 3, 5, 9, 17})
+    if (BL <= per * MAXT) return per;
+  return 0;
 }
 
 template <int PER>
-int launch(const Params& p, cudaStream_t stream) {
-  int threads = (p.GWp + PER - 1) / PER;
-  threads = ((threads + 31) / 32) * 32;
-  const size_t shmem = sizeof(int) * ((size_t)threads * (PER + 2) + 32 + 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      tape_fwd_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+void make_config(const Params& p, int C, int grid, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                 cudaLaunchAttribute* attr) {
+  const int threads = ((p.BL + PER - 1) / PER + 31) / 32 * 32;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = dyn_smem(p.BL);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+template <int PER>
+int launch(const Params& p, int C, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(tape_fwd_kernel<PER>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dyn_smem(p.BL));
   if (err != cudaSuccess) return (int)err;
-  tape_fwd_kernel<PER><<<p.B, threads, shmem, stream>>>(p);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  make_config<PER>(p, C, p.B * C, stream, cfg, attr);
+  err = cudaLaunchKernelEx(&cfg, tape_fwd_kernel<PER>, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int PER>
+int clusters(const Params& p, int C, int* n) {
+  cudaError_t err = cudaFuncSetAttribute(tape_fwd_kernel<PER>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dyn_smem(p.BL));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  make_config<PER>(p, C, C, 0, cfg, attr);
+  return (int)cudaOccupancyMaxActiveClusters(n, tape_fwd_kernel<PER>, &cfg);
+}
+
+bool valid_shape(int GWp, int C) {
+  return (C == 1 || C == 2 || C == 4 || C == 8) && GWp % 128 == 0 && GWp % C == 0 &&
+         GWp / C >= G * 4 && lanes_per_thread(GWp / C) > 0;
 }
 
 }  // namespace
 
+#define TAPE_FWD_DISPATCH(CALL)                          \
+  switch (lanes_per_thread(p.BL)) {                      \
+    case 2: return CALL(2);                              \
+    case 3: return CALL(3);                              \
+    case 5: return CALL(5);                              \
+    case 9: return CALL(9);                              \
+    case 17: return CALL(17);                            \
+    default: return (int)cudaErrorInvalidValue;          \
+  }
+
+// C blocks a track (1, 2, 4 or 8), each owning GWp / C >= 128 region lanes.
 extern "C" int tape_fwd_launch(const int* rowinfo, const int* gplane,
-                               const int8_t* r_flat, int M, int* moves,
-                               int* hatn, int* best, int B, int L, int W,
-                               int GWp, int match_s, int mismatch, int open_,
-                               int ext, int fs1, int fs2, void* stream) {
+                               const int8_t* r_flat, int M, const int* ngt,
+                               int* moves, int* hatn, int* best, int B, int L,
+                               int W, int GWp, int C, int match_s,
+                               int mismatch, int open_, int ext, int fs1,
+                               int fs2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L % 32 != 0 || W < 128 || GWp < W || GWp % 128 != 0)
+  if (B <= 0 || L % G != 0 || W < 128 || GWp < W || M % 16 != 0 || M < GWp ||
+      !valid_shape(GWp, C))
     return (int)cudaErrorInvalidValue;
-  Params p{rowinfo, gplane, r_flat, moves, hatn, best, B, L, M, W, GWp,
-           match_s, mismatch, open_, ext, fs1, fs2};
-  const int per = (GWp + 1023) / 1024;
-  if (per <= 1) return launch<1>(p, st);
-  if (per <= 2) return launch<2>(p, st);
-  if (per <= 3) return launch<3>(p, st);
-  if (per <= 5) return launch<5>(p, st);
-  if (per <= 9) return launch<9>(p, st);
-  if (per <= 17) return launch<17>(p, st);
-  if (per <= 33) return launch<33>(p, st);
-  return (int)cudaErrorInvalidValue;
+  const int BL = GWp / C;
+  Params p{rowinfo, gplane, r_flat, ngt, moves, hatn, best, B, L, M, W, GWp, BL,
+           region_bytes(BL), match_s, mismatch, open_, ext, fs1, fs2};
+#define FWD_CALL(PER) launch<PER>(p, C, st)
+  TAPE_FWD_DISPATCH(FWD_CALL)
+#undef FWD_CALL
+}
+
+// Clusters of C blocks the card holds at once at region width GWp
+// (cudaOccupancyMaxActiveClusters at tape_fwd_launch's block shape).
+extern "C" int tape_fwd_clusters(int C, int GWp, int* n) {
+  if (!valid_shape(GWp, C)) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.BL = GWp / C;
+#define OCC_CALL(PER) clusters<PER>(p, C, n)
+  TAPE_FWD_DISPATCH(OCC_CALL)
+#undef OCC_CALL
 }

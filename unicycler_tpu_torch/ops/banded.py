@@ -411,18 +411,53 @@ def _wave_queue(launches, scoring, config, W, need_cigar, device):
 
 
 def _tape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
-    """Build the row tapes (bands W > 2048) and queue their kernels
-    (asynchronously on CUDA). Same pending contract as _wavetape_dispatch."""
-    from .tape import build_tapes, forward_inputs
+    """Lay the tasks of a row-tape call (bands W > 2048) out one a track
+    (tape.build_row_launches, on every device, so the CPU's plain versions
+    run the launches the card runs) and queue their kernels
+    (asynchronously on CUDA). Same pending contract as _wavetape_dispatch.
+
+    Counters: tape.launches, tape.tracks, tape.rows (real rows, the
+    forward kernel's work), tape.padded_rows and tape.rows.W<W> (padded
+    rows by band). A launch with fewer than min(tasks, FULL_CARD_TRACKS)
+    tracks counts in tape.short_launches and is named by a tape.short.*
+    counter, unless the budget forced it (then tape.budget_short.*)."""
+    from . import tape, wavetape
+    from ..utils import trace
+    budget = wavetape.MOVES_BUDGET
+    with trace.span('tape_build'):
+        launches = tape.build_row_launches(live_tasks, W, build_corridor,
+                                           budget)
+    want = min(len(live_tasks), FULL_CARD_TRACKS)
+    for tp in launches:
+        tracks = tp.qf.shape[0]
+        if tracks < want:
+            name = 'W%d.L%d.tracks%d.of%d' % (W, tp.L, tracks,
+                                               len(live_tasks))
+            if tape.row_moves_bytes(want, tp.L_real, W) > budget \
+                    or len(live_tasks) < want * len(launches):
+                trace.add('tape.budget_short.' + name)
+            else:
+                trace.add('tape.short_launches')
+                trace.add('tape.short.' + name)
+    return _row_queue(launches, scoring, config, W, need_cigar, device)
+
+
+def _row_queue(launches, scoring, config, W, need_cigar, device):
+    """Queue the forward kernel and the walker of each TapeLaunch (of
+    either layout); same pending contract as _tape_dispatch. A launch's
+    moves are dropped once its walk is queued, so a call holds one
+    launch's moves."""
+    from .tape import forward_inputs
     from .tape_kernels import tape_forward, tape_traceback
     from ..utils import trace
-    with trace.span('tape_build'):
-        launches = build_tapes(live_tasks, W, build_corridor)
     pending = []
     for tp in launches:
         trace.add('tape.launches')
-        trace.add('tape.rows', tp.L_real)
-        trace.add('tape.rows.W%d.bt%d' % (W, tp.qf.shape[0]), tp.L)
+        trace.add('tape.tracks', tp.qf.shape[0])
+        trace.add('tape.rows', 32 * int((tp.last_slot.max(1) + 1).clip(
+            min=0).sum()))
+        trace.add('tape.padded_rows', tp.qf.shape[0] * tp.L)
+        trace.add('tape.rows.W%d' % W, tp.L)
         up = [_upload(a, device) for a in forward_inputs(tp)]
         score, end_i, end_j, moves, (c_rel, jr_rows) = tape_forward(
             *up, scoring=scoring, config=config, W=W, need_moves=need_cigar)
@@ -437,6 +472,7 @@ def _tape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
                 torch.where(valid, end_j, zero),
                 torch.where(valid, seg_start, zero), W)
             outs += [records, fin]
+        del moves, c_rel, jr_rows
         pending.append((tp, outs))
     return pending
 

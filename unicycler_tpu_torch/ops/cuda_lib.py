@@ -138,10 +138,13 @@ _SIGNATURES = {
     # B, W, match, mismatch, open, ext, fs1, fs2, fe1, fe2, stream
     'banded_launch': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # rowinfo, gplane, r_flat, M, moves, hatn, best, B, L, W, GWp,
-    # match, mismatch, open, ext, free_start_s1, free_start_s2, stream
-    'tape_fwd_launch': [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _P],
+    # rowinfo, gplane, r_flat, M, ngt, moves, hatn, best, B, L, W, GWp,
+    # cluster size, match, mismatch, open, ext, free_start_s1,
+    # free_start_s2, stream
+    'tape_fwd_launch': [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _P],
+    # cluster size, GWp, *clusters resident at once
+    'tape_fwd_clusters': [_I, _I, _P],
     # moves, c_rel, jr_rows, n_tasks, end_abs, end_j, seg_start, records,
     # fin, B, L, GWp, W, TT, stream
     'tape_walk_launch': [_P, _P, _P, _P, _P, _P, _P, _P, _P,

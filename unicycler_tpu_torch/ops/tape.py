@@ -1,16 +1,22 @@
 """Host-side row-tape builder for the banded DP at wide bands.
 
 Counterpart of unicycler_tpu/ops/tape.py. The TAPE layout concatenates
-every task of a call along the row axis of one kernel launch:
+the tasks of a call along the row axis of one kernel launch. Two layouts
+of the same tasks:
 
-  * each track owns an independent task list: tasks are assigned
-    longest-first to the least-loaded track (LPT), each padded to a
-    SEG_ALIGN=32 row boundary, and laid back to back. The tape's serial
-    length is the max track load — lower-bounded by the single longest
-    task, since one task's DP rows are inherently sequential.
-  * the track count BT is chosen per launch from {8, 16, 32} by the cost
-    model serial_length(bt) x bt (the TPU's rule; kept so the layout, and
-    with it every output, matches the JAX package).
+  * build_tapes (the JAX package's): each track owns a task list, tasks
+    assigned longest-first to the least-loaded track (LPT), each padded
+    to a SEG_ALIGN=32 row boundary and laid back to back; the track count
+    BT is chosen per launch from {8, 16, 32} by the cost model
+    serial_length(bt) x bt (the TPU's rule; kept so the layout, and with
+    it every output, matches the JAX package).
+  * build_row_launches (the card's, which ops/banded takes): one task a
+    track, tracks sorted longest first, launches cut by a byte budget for
+    the moves and the tasks split evenly over them, so a launch holds as
+    many tracks as the call has tasks and the forward kernel spreads each
+    track over a cluster of SMs (csrc/tape_fwd.cu).
+
+Common to both:
   * each track owns a flat reference array: its tasks' windows laid out
     back to back, each padded with W sentinel bases on both sides.
   * per-row metadata is ONE byte (query base + reset / capture / band
@@ -119,10 +125,50 @@ def choose_bt(alens):
     return best_bt
 
 
+def padded_rows(L_real, W):
+    """The tape length a launch whose longest track has L_real rows is
+    padded to (_build_one's bucketing)."""
+    if W > 512:
+        return _bucket_geom(max(L_real, 512), 512, 256, ratio=1.5)
+    return _bucket_geom(max(L_real, 512), 512, 256)
+
+
+def row_moves_bytes(tracks, L_real, W):
+    """Bytes of a launch's moves: one int32 word per 8 tape rows, region
+    lane and track."""
+    GWp = (W + SEG_ALIGN * MAX_SHIFT + 127) // 128 * 128
+    return tracks * (padded_rows(L_real, W) // 8) * GWp * 4
+
+
+def build_row_launches(tasks, W, build_corridor, budget=None
+                       ) -> List[TapeLaunch]:
+    """The card's layout: one task a track, tracks sorted by aligned row
+    count (longest first), launches cut by `budget` bytes of moves
+    (row_moves_bytes; by default wavetape.MOVES_BUDGET) with the tasks
+    split evenly over them (wavetape.split_by_budget). Tasks with empty q
+    or r must be filtered by the caller. Launches are TapeLaunch records
+    like build_tapes', so the kernels, the walker and the decode take
+    either layout; per-task outputs do not depend on the layout (every
+    task starts on a group boundary with its carries reset, and the
+    prolog's clamps bind only in pads)."""
+    from .wavetape import MOVES_BUDGET, split_by_budget
+    if budget is None:
+        budget = MOVES_BUDGET
+    order = sorted(range(len(tasks)), key=lambda i: -_aligned_len(tasks[i]))
+    rows = [_aligned_len(tasks[i]) for i in order]
+    parts = split_by_budget(
+        rows, W, budget,
+        launch_bytes=lambda tracks, longest: row_moves_bytes(tracks, longest,
+                                                             W))
+    return [_build_one(tasks, [[order[i]] for i in range(lo, hi)], rows[lo],
+                       W, hi - lo, build_corridor) for lo, hi in parts]
+
+
 def build_tapes(tasks, W, build_corridor, bt=None) -> List[TapeLaunch]:
-    """Lay out `tasks` (ops.banded.BandedTask list) into tape launches.
-    Tasks with empty q or r must be filtered by the caller. `bt` forces
-    the track count (the default choose_bt picks it)."""
+    """Lay out `tasks` (ops.banded.BandedTask list) into tape launches as
+    the JAX package does (several tasks a track, LPT). Tasks with empty q
+    or r must be filtered by the caller. `bt` forces the track count (the
+    default choose_bt picks it)."""
     order = sorted(range(len(tasks)), key=lambda i: -len(tasks[i].q))
     if bt is None:
         bt = choose_bt([_aligned_len(tasks[i]) for i in order])
@@ -158,10 +204,7 @@ def _build_one(tasks, assign, L_real, W, bt, build_corridor) -> TapeLaunch:
     # rows quantum 256; wide-band launches (W > 512) bucket coarsely, as
     # the JAX package does (its compiled-shape count), so both packages
     # lay out the same tapes.
-    if W > 512:
-        L = _bucket_geom(max(L_real, 512), 512, 256, ratio=1.5)
-    else:
-        L = _bucket_geom(max(L_real, 512), 512, 256)
+    L = padded_rows(L_real, W)
     TT = _bucket_pow2(max(max(len(a) for a in assign), 8), 8)
 
     qf = np.full((bt, L), Q_PAD, np.uint8)

@@ -18,7 +18,10 @@ The wrappers (tape_forward, tape_traceback) launch the CUDA kernels for
 tensors on a CUDA device and run the plain versions only for tensors on
 the CPU. The plain versions repeat the kernels' arithmetic lane for lane,
 so kernel and plain version agree bit for bit; the tests hold the plain
-versions against the JAX package's interpret-mode kernels.
+versions against the JAX package's interpret-mode kernels. The forward
+kernel runs each track on a thread block cluster (cluster_size) and
+stops at the track's last real group (track_groups), so it is compared
+with its plain version over real groups (real_rows).
 """
 
 import numpy as np
@@ -90,6 +93,55 @@ def tape_prolog(qf, r_flat, cbase, c0m, m_t, r_base, seg_start, W):
             gplane.to(torch.int32).contiguous(), jr_g, d_off)
 
 
+def track_groups(last_slot):
+    """Real groups of each track, (B,) int32: its last task's last_slot +
+    1 (0 for a track with no task). The forward kernel stops there."""
+    return (last_slot.to(torch.int64).amax(1) + 1).clamp(min=0).to(
+        torch.int32)
+
+
+def real_rows(moves, hatn, best, ngt):
+    """The forward outputs with every group at or past its track's real
+    group count zeroed: what the kernel defines (it stops there) and its
+    plain version computes too."""
+    n_groups = best.shape[0]
+    keep = torch.arange(n_groups, device=best.device)[:, None] \
+        < ngt.to(best.device).to(torch.int64)[None, :]          # (NG, B)
+    hatn = torch.where(keep[:, :, None], hatn, 0)
+    best = torch.where(keep[:, :, None], best, 0)
+    if moves is not None:
+        keep_rows = keep.t().repeat_interleave(G // 8, dim=1)   # (B, L/8)
+        moves = torch.where(keep_rows[:, :, None], moves, 0)
+    return moves, hatn, best
+
+
+# cluster sizes the forward kernel takes (blocks a track), and the fewest
+# region lanes a block of a cluster owns
+CLUSTER_SIZES = (8, 4, 2, 1)
+MIN_BLOCK_LANES = 128
+# the most region lanes one block takes (csrc/tape_fwd.cu's widest
+# template: 17 lanes a thread, 512 threads)
+MAX_BLOCK_LANES = 17 * 512
+
+
+def cluster_size(tracks, W, sms, resident):
+    """Blocks a track for a launch of `tracks` tracks at band W: the
+    largest C in CLUSTER_SIZES with tracks x C <= sms (the card's SMs),
+    at least MIN_BLOCK_LANES region lanes a block and every cluster
+    resident at once (tracks <= resident(C), the card's
+    cudaOccupancyMaxActiveClusters), but never so few that a block would
+    own more than MAX_BLOCK_LANES lanes."""
+    GWp = region_width(W)
+    fits = [C for C in CLUSTER_SIZES if GWp // C <= MAX_BLOCK_LANES]
+    if not fits:
+        raise ValueError('W = %d is too wide for the row kernel' % W)
+    for C in fits:
+        if tracks * C <= sms and GWp // C >= MIN_BLOCK_LANES \
+                and tracks <= resident(C):
+            return C
+    return fits[-1]
+
+
 def _shift_right(x, d):
     """x shifted right by d lanes, NEG in the vacated lanes."""
     fill = torch.full((x.shape[0], d), NEG, dtype=x.dtype, device=x.device)
@@ -109,16 +161,21 @@ def _prefix_cummax(x, max_dist):
 
 
 def tape_forward_plain(rowinfo, gplane, r_flat, scoring: Scoring,
-                       config: AlignConfig, W: int, need_moves: bool):
+                       config: AlignConfig, W: int, need_moves: bool,
+                       ngt=None):
     """Plain PyTorch version of the forward kernel (the rolled Pallas body,
     all tracks at once). Returns (moves (B, L/8, GWp) int32 or None, hatn
     (L/32, B, GWp) int32 holding H at each capture row (zero elsewhere),
     best (L/32, B, 2) int32 = each group's running best last-column value
-    and its local row)."""
+    and its local row). It computes every group, a track's padding
+    included, so it equals the Pallas kernel in full. With ngt ((B,)
+    int32, track_groups) it stops as the CUDA kernel does, at each
+    track's last real group, and zeroes the groups past it (real_rows)."""
     match_s, mismatch = int(scoring.match), int(scoring.mismatch)
     open_, ext = int(scoring.gap_open), int(scoring.gap_extend)
     B, L = rowinfo.shape
     n_groups = L // G
+    n_run = n_groups if ngt is None else min(n_groups, int(ngt.max()))
     GWp = region_width(W)
     dev = rowinfo.device
     i32 = torch.int32
@@ -129,10 +186,10 @@ def tape_forward_plain(rowinfo, gplane, r_flat, scoring: Scoring,
     mv = torch.zeros((B, GWp), dtype=torch.int64, device=dev)
     bv = torch.full((B, 1), NEG, dtype=i32, device=dev)
     bi = torch.zeros((B, 1), dtype=i32, device=dev)
-    moves = torch.empty((B, L // 8, GWp), dtype=i32, device=dev) \
+    moves = torch.zeros((B, L // 8, GWp), dtype=i32, device=dev) \
         if need_moves else None
     hatn = torch.zeros((n_groups, B, GWp), dtype=i32, device=dev)
-    best = torch.empty((n_groups, B, 2), dtype=i32, device=dev)
+    best = torch.zeros((n_groups, B, 2), dtype=i32, device=dev)
     gp = gplane.to(i32)
     rv = rowinfo.to(i32)
 
@@ -145,7 +202,7 @@ def tape_forward_plain(rowinfo, gplane, r_flat, scoring: Scoring,
         return torch.where((j <= m_g) & (j >= c0) & (j < c0 + W), h0,
                            NEG).to(i32)
 
-    for g in range(n_groups):
+    for g in range(n_run):
         p = gp[:, g, :]
         jr, m_g, lb = p[:, GP_JR:GP_JR + 1], p[:, GP_M:GP_M + 1], \
             p[:, GP_LB:GP_LB + 1]
@@ -226,43 +283,93 @@ def tape_forward_plain(rowinfo, gplane, r_flat, scoring: Scoring,
                 hatn[g, bidx[capb]] = hn[capb]
             h, f = hn, f_new
         best[g] = torch.cat([bv, bi], 1)
+    if ngt is not None:
+        moves, hatn, best = real_rows(moves, hatn, best, ngt)
     return moves, hatn, best
 
 
-def tape_forward_cuda(rowinfo, gplane, r_flat, scoring: Scoring,
-                      config: AlignConfig, W: int, need_moves: bool):
-    """Launch csrc/tape_fwd.cu; same contract as the plain version."""
+_RESIDENT = {}
+
+
+def resident_clusters(C, W):
+    """Clusters of C blocks of the forward kernel at band W that the card
+    holds at once (cudaOccupancyMaxActiveClusters), cached."""
+    key = (C, region_width(W), torch.cuda.current_device())
+    if key not in _RESIDENT:
+        import ctypes
+        n = ctypes.c_int()
+        cuda_lib.check(cuda_lib.lib().tape_fwd_clusters(
+            C, key[1], ctypes.byref(n)), 'tape_fwd_clusters')
+        _RESIDENT[key] = n.value
+    return _RESIDENT[key]
+
+
+def launch_cluster(tracks, W, device):
+    """The cluster size tape_forward_cuda takes for a launch of `tracks`
+    tracks at band W on `device` (cluster_size on the card's SM count and
+    resident clusters)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return cluster_size(tracks, W, sms, lambda C: resident_clusters(C, W))
+
+
+def tape_forward_cuda(rowinfo, gplane, r_flat, ngt, scoring: Scoring,
+                      config: AlignConfig, W: int, need_moves: bool,
+                      cluster=None):
+    """Launch csrc/tape_fwd.cu: the plain version's contract over each
+    track's first ngt[b] groups (ngt: (B,) int32, track_groups); moves and
+    best of the groups past them are left unwritten, hatn zero. Each
+    track runs on a cluster of `cluster` blocks (by default
+    launch_cluster's choice)."""
     B, L = rowinfo.shape
     dev = rowinfo.device
     GWp = region_width(W)
     for name, x, dt in (('rowinfo', rowinfo, torch.int32),
                         ('gplane', gplane, torch.int32),
-                        ('r_flat', r_flat, torch.int8)):
+                        ('r_flat', r_flat, torch.int8),
+                        ('ngt', ngt, torch.int32)):
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError('%s must be a contiguous %s tensor on %s'
                              % (name, dt, dev))
     if L % G or gplane.shape != (B, L // G, GP_N) \
-            or r_flat.shape[0] != B or r_flat.shape[1] < GWp:
+            or r_flat.shape[0] != B or r_flat.shape[1] < GWp \
+            or tuple(ngt.shape) != (B,):
         raise ValueError('inconsistent launch shapes')
+    # the kernel copies 16-byte chunks of its inputs into shared memory
+    if r_flat.shape[1] % 16 or any(x.data_ptr() % 16 for x in
+                                   (rowinfo, gplane, r_flat)):
+        raise ValueError('rowinfo, gplane and r_flat rows must start on '
+                         '16-byte boundaries')
+    C = launch_cluster(B, W, dev) if cluster is None else int(cluster)
+    if C not in CLUSTER_SIZES or GWp // C > MAX_BLOCK_LANES:
+        raise ValueError('cluster size %d does not fit W = %d' % (C, W))
     moves = torch.empty((B, L // 8, GWp), dtype=torch.int32, device=dev) \
         if need_moves else None
     hatn = torch.zeros((L // G, B, GWp), dtype=torch.int32, device=dev)
-    best = torch.empty((L // G, B, 2), dtype=torch.int32, device=dev)
+    # each block's running best last column and its row
+    parts = torch.empty((L // G, B, C, 2), dtype=torch.int32, device=dev)
     lib = cuda_lib.lib()
-    with cuda_lib.timed('tape_fwd', dev, (rowinfo, gplane, r_flat,
-                                          cuda_lib.shape_only(moves), hatn,
-                                          best)):
+    shape = cuda_lib.shape_only
+    with cuda_lib.timed('tape_fwd', dev, (rowinfo, shape(gplane),
+                                          shape(r_flat), ngt, shape(moves),
+                                          shape(hatn), shape(parts), C)):
         err = lib.tape_fwd_launch(
             rowinfo.data_ptr(), gplane.data_ptr(), r_flat.data_ptr(),
-            r_flat.shape[1], moves.data_ptr() if need_moves else None,
-            hatn.data_ptr(), best.data_ptr(), B, L, W, GWp,
+            r_flat.shape[1], ngt.data_ptr(),
+            moves.data_ptr() if need_moves else None,
+            hatn.data_ptr(), parts.data_ptr(), B, L, W, GWp, C,
             int(scoring.match), int(scoring.mismatch),
             int(scoring.gap_open), int(scoring.gap_extend),
             int(config.free_start_s1), int(config.free_start_s2),
             cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, 'tape_fwd')
     cuda_lib.LAUNCHES['tape_fwd'] += 1
-    return moves, hatn, best
+    # merged over the cluster as the one-lane running update would: the
+    # largest value, then its earliest row
+    val, row = parts[..., 0], parts[..., 1]
+    top = val.amax(-1)
+    first = torch.where(val == top[..., None], row,
+                        torch.iinfo(torch.int32).max).amin(-1)
+    return moves, hatn, torch.stack([top, first], -1)
 
 
 def _boundary_vals(j, m, scoring, config):
@@ -289,6 +396,7 @@ def tape_forward(qf, r_flat, cbase, c0m, c_n, m_t, n_t, r_base,
                                                r_base, seg_start, W)
     if qf.device.type == 'cuda':
         moves, hatn, best = tape_forward_cuda(rowinfo, gplane, r_flat,
+                                              track_groups(last_slot),
                                               scoring, config, W, need_moves)
     elif qf.device.type == 'cpu':
         moves, hatn, best = tape_forward_plain(rowinfo, gplane, r_flat,
@@ -420,7 +528,8 @@ def tape_traceback_cuda(moves, c_rel, jr_rows, n_tasks, end_abs, end_j,
         if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError('walker inputs must be contiguous int32 on %s'
                              % dev)
-    if Lw * 8 != L or jr_rows.shape != (B, L) or c_rel.shape != (B, L):
+    if Lw * 8 != L or L % G or jr_rows.shape != (B, L) \
+            or c_rel.shape != (B, L):
         raise ValueError('moves shape %s does not match (B, L/8, GWp)'
                          % (tuple(moves.shape),))
     records = torch.zeros((B, L), dtype=torch.int32, device=dev)

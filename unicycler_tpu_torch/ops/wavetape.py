@@ -161,19 +161,23 @@ def _stage_tasks(tasks, W, build_corridor):
     return metas
 
 
-def split_by_budget(ngs, W, budget=MOVES_BUDGET):
-    """Cut group counts sorted longest first into contiguous parts whose
-    padded moves fit `budget`: as many parts as the fewest that fit (or
-    just enough more), the tasks split evenly over them, so the last
-    launch is no small remainder. A part of long tasks that the budget
-    fills holds fewer, and the later parts share the rest evenly. A task
-    too large for the budget alone gets a part of its own. Returns
-    [(lo, hi)] index ranges."""
+def split_by_budget(ngs, W, budget=MOVES_BUDGET, launch_bytes=None):
+    """Cut task sizes sorted longest first (group counts here; the row
+    layout, ops/tape.build_row_launches, passes row counts) into
+    contiguous parts whose padded moves fit `budget`: as many parts as the
+    fewest that fit (or just enough more), the tasks split evenly over
+    them, so the last launch is no small remainder. A part of long tasks
+    that the budget fills holds fewer, and the later parts share the rest
+    evenly. A task too large for the budget alone gets a part of its own.
+    launch_bytes(tracks, longest size) gives a part's moves bytes (by
+    default the wave layout's). Returns [(lo, hi)] index ranges."""
     n = len(ngs)
+    if launch_bytes is None:
+        def launch_bytes(tracks, longest):
+            return moves_bytes(tracks, padded_groups(longest), W)
 
     def fits(lo, hi):
-        return hi - lo == 1 or moves_bytes(hi - lo, padded_groups(ngs[lo]),
-                                           W) <= budget
+        return hi - lo == 1 or launch_bytes(hi - lo, ngs[lo]) <= budget
 
     def fill(parts_k):
         """Parts filled from the longest task, each up to the budget and,
