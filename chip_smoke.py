@@ -19,7 +19,12 @@ Phases (every failed check raises, so the exit code is nonzero):
      lengths at W = 128, 512, 1024 and 2048); then an A/B of the two
      layouts on 300 polish-shaped tasks (N50 ~16 kbp, W = 512): each
      kernel's device time in each (JAX, card, card, JAX), and equal
-     per-task scores, ends and CIGARs; the banded kernel at W = 512, 1024;
+     per-task scores, ends and CIGARs; then the retry pair (kernels 3 and
+     6) at W = 128, 512, 1024, 2048, 4096 and 16384 on 32 drifting tasks:
+     kernel 3's score, ends and moves rows [0, n_act) and kernel 6's
+     records and finals bit-equal to their plain versions, each launch
+     timed alone (kernel 3 at each lanes-a-thread template that fits), us
+     per real row (rows up to the launch's longest n_act) and per step;
   4. the slice: align_jobs on a synthetic 5 Mbp chromosome + 100 kbp
      plasmid with 200 long reads (N50 ~15 kb, ~8% errors) at sensitivity 0
      plus 20 reads at sensitivity 2; checks true placement and that every
@@ -37,12 +42,19 @@ Phases (every failed check raises, so the exit code is nonzero):
      walked on the card into a CIGAR), both equal to the host-decode
      retry path, with the CIGARs re-tallied and the walker held to its
      plain version at the call's width; bytes copied back by both retry
-     routes;
+     routes; the retry path at the row route's W = 4096 on bridging-
+     shaped tasks (1,300-5,200 bp) equal to the CPU route, and
+     align_banded at W = 4096 with every other row walk forced to end in
+     a band escape, so those tasks retry on kernels 3 and 6 inside the
+     call, equal to the CPU route;
   6. row-tape kernels: the forward kernel (at each cluster size 1, 2, 4
-     and 8, each launch timed alone) and walker of bands W > 2048 against
-     their plain versions at W = 4096 and 8192, in the JAX package's
-     layout (8 and 32 tracks) and the card's (12 one-task tracks), bit-
-     equal over each track's real groups; an A/B of the two layouts on 84
+     and 8 that fits the band, each launch timed alone) and walker of
+     bands W > 2048 against their plain versions at W = 4096 and 8192 in
+     the JAX package's layout (8 and 32 tracks), and in the card's (12
+     one-task tracks) at W = 4096, 8192, 16384 (C >= 2) and 32768
+     (C >= 4), and one short task at W = 131072 (the tiled kernel, one
+     block a track), bit-equal over each track's real groups; an A/B of
+     the two layouts on 84
      bridging-shaped tasks at W = 4096 (JAX, card, card, JAX) with equal
      per-task results; and the full-matrix DP (torch ops) timed at the
      bridging path's short-pair shape;
@@ -242,12 +254,18 @@ def tape_walk_cost(records, fin):
     return nbytes, steps * OPS_PER_STEP_WALK, steps
 
 
-def banded_cost(q, r_ext, c, moves):
-    """(bytes, ops, cells) of one banded launch with moves: the inputs
-    and the moves once; B * n_pad * W cells at OPS_PER_CELL_BANDED."""
-    cells = q.numel() * moves.shape[2] * 8
-    nbytes = sum(x.numel() * x.element_size() for x in (q, r_ext, c, moves))
+def banded_cost(q, r_ext, c, n_acts, moves):
+    """(bytes, ops, cells) of one banded launch with moves, over each
+    task's real rows (the kernel stops at n_act): the inputs once, the
+    real rows' moves once; n_act * W cells a task at
+    OPS_PER_CELL_BANDED."""
+    rows = int(n_acts.sum())
+    W = moves.shape[2] * 8
+    cells = rows * W
+    nbytes = sum(x.numel() * x.element_size() for x in (q, r_ext, c, n_acts)) \
+        + rows * moves.shape[2] * 4
     return nbytes, cells * OPS_PER_CELL_BANDED, cells
+
 
 
 def kernel_costs(timings):
@@ -553,10 +571,8 @@ def wave_layout_ab(rng, dev, scoring, config, report, n_tasks=300, W=512):
 
 def phase_kernels(rng, dev, results, report):
     """Each kernel against its plain version on the card."""
-    import torch
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.ops import banded as bo
-    from unicycler_tpu_torch.ops import banded_kernel as bk
     from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL, Scoring
     from unicycler_tpu_torch.ops.wavetape import (build_wave_launches,
                                                   build_wavetapes)
@@ -587,32 +603,84 @@ def phase_kernels(rng, dev, results, report):
     wave_fwd_scaling(rng, dev, scoring, config, report)
     wave_layout_ab(rng, dev, scoring, config, report)
 
-    for W, size in ((512, 1500), (1024, 1200)):
+    retry_kernels_against_plain(rng, dev, scoring, config, results)
+
+
+def retry_kernels_against_plain(rng, dev, scoring, config, results):
+    """Kernels 3 and 6 (the retry pair) against their plain versions at the
+    wave route's widths and the row route's: 32 drifting tasks a launch,
+    kernel 3's score, ends and moves rows [0, n_act) and kernel 6's
+    records and finals bit-equal; each launch timed alone; us per real
+    row (rows up to the launch's longest n_act) and per walk step. At the
+    fast kernel's widths, each lanes-a-thread template is timed too."""
+    import torch
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops import traceback_kernels as tbk
+    for W, size in ((128, 1500), (512, 1500), (1024, 1200), (2048, 1200),
+                    (4096, 1200), (16384, 1200)):
         tasks = [bo.BandedTask(*t) for t in
                  synth.banded_tasks(rng, [size] * bk.BT, drift=True)]
-        idxs = list(range(len(tasks)))
         n_pad = bo.bucket_length(max(len(t.q) for t in tasks))
         m_pad = bo.bucket_length(max(len(t.r) for t in tasks))
-        host = bo._pack_bucket(tasks, idxs, n_pad, m_pad, W, bk.BT)
+        host = bo._pack_bucket(tasks, list(range(len(tasks))), n_pad, m_pad,
+                               W, bk.BT)
         args = [torch.from_numpy(x).to(dev) for x in host]
-        run = lambda: bk.banded_batch_cuda(*args, scoring, config, W, True)
-        run()
-        ms, out_k = cuda_time(run, reps=3)
+        n_acts = args[3]
+        rows = int(n_acts.max())
         plain_ms, out_p = cuda_time(
             lambda: bk.banded_batch_plain(*args, scoring, config, W, True))
-        err = max(exact('banded ' + n, a, b) for n, a, b in
-                  zip(('score', 'end_i', 'end_j', 'moves'), out_k, out_p))
-        cells = bk.BT * n_pad * W
-        nbytes = sum(x.numel() * x.element_size() for x in args) \
-            + sum(x.numel() * x.element_size() for x in out_k)
-        results.append({'name': 'banded', 'W': W, 'bt': bk.BT, 'ms': ms,
-                        'plain_ms': plain_ms,
-                        'bound_ms': bound_ms(nbytes,
-                                             cells * OPS_PER_CELL_BANDED),
-                        'bytes': nbytes, 'cells': cells,
-                        'max_abs_err': err})
-        log('W=%4d B=%2d n_pad=%d  banded %.3f ms (plain %.0f ms)  bit-equal'
-            % (W, bk.BT, n_pad, ms, plain_ms))
+        want_moves = bk.moves_rows_real(out_p[3], n_acts)
+        sweep = [0] if W > bk.FAST_MAX_W else \
+            [0] + [ln for ln in (2, 4, 8) if (W + 128) // ln <= 576]
+        line = []
+        for ln in sweep:
+            run = lambda: bk.banded_batch_cuda(*args, scoring, config, W,
+                                               True, lanes=ln)
+            run()
+            ms, out_k = kernel_time(run, reps=3)
+            err = max(exact('banded W %d lanes %d %s' % (W, ln, n), a, b)
+                      for n, a, b in zip(('score', 'end_i', 'end_j'),
+                                         out_k[:3], out_p[:3]))
+            err = max(err, exact('banded W %d lanes %d moves' % (W, ln),
+                                 bk.moves_rows_real(out_k[3], n_acts),
+                                 want_moves))
+            nbytes, ops, cells = banded_cost(*args[:4], out_k[3])
+            results.append({'name': 'banded', 'W': W, 'bt': bk.BT,
+                            'n_pad': n_pad, 'rows': rows, 'lanes': ln,
+                            'summary': W == 1024 and ln == 0, 'ms': ms,
+                            'us_per_row': 1e3 * ms / rows,
+                            'plain_ms': plain_ms,
+                            'bound_ms': bound_ms(nbytes, ops),
+                            'bytes': nbytes, 'cells': cells,
+                            'max_abs_err': err})
+            line.append('%s %.3f ms (%.3f us/row)'
+                        % ('default' if ln == 0 else '%d lanes' % ln, ms,
+                           1e3 * ms / rows))
+            if ln == 0:
+                score, ei, ej, moves = out_k
+            del out_k
+        del out_p, want_moves
+        crow = args[2][:, 1:].contiguous()
+        walk = lambda: tbk.banded_traceback_cuda(moves, crow, ei, ej, W)
+        walk()
+        wms, (rec_k, fin_k) = kernel_time(walk, reps=3)
+        wplain_ms, (rec_p, fin_p) = cuda_time(
+            lambda: tbk.banded_traceback_plain(moves, crow, ei, ej, W))
+        werr = max(exact('banded_walk W %d records' % W, rec_k, rec_p),
+                   exact('banded_walk W %d final' % W, fin_k, fin_p))
+        wbytes, wops, steps = banded_walk_cost(rec_k, fin_k)
+        results.append({'name': 'banded_walk', 'W': W, 'bt': bk.BT,
+                        'n_pad': n_pad, 'ms': wms, 'plain_ms': wplain_ms,
+                        'bound_ms': bound_ms(wbytes, wops), 'bytes': wbytes,
+                        'steps': steps, 'us_per_step': 1e3 * wms / steps,
+                        'max_abs_err': werr})
+        log('W=%5d B=%2d n_pad=%d rows=%d  banded %s (plain %.0f ms)  '
+            'banded_walk %.3f ms, %d steps, %.4f us/step (plain %.0f ms)  '
+            'bit-equal' % (W, bk.BT, n_pad, rows, ', '.join(line), plain_ms,
+                           wms, steps, 1e3 * wms / steps, wplain_ms))
+        del moves, args
 
 
 def _load_genome(args):
@@ -820,7 +888,7 @@ def phase_retry(args, dev, results, report):
     if min(launches.values()) <= 0 or walk_ctr['retry.device_walk'] <= 0:
         raise AssertionError('the retry path did not launch kernels 3 and 6')
 
-    def walk_against_plain(task_list, config, W):
+    def walk_against_plain(task_list, config, W, summary=False):
         """Kernel 6 against its plain version on kernel 3's moves of
         task_list, packed into one bucket at width W."""
         n_pad = bucket_length(max(len(t.q) for t in task_list))
@@ -834,22 +902,25 @@ def phase_retry(args, dev, results, report):
         crow = up[2][:, 1:].contiguous()
         walk = lambda: tbk.banded_traceback_cuda(moves, crow, ei, ej, W)
         walk()
-        ms, (rec_k, fin_k) = cuda_time(walk, reps=3)
+        ms, (rec_k, fin_k) = kernel_time(walk, reps=3)
         plain_ms, (rec_p, fin_p) = cuda_time(
             lambda: tbk.banded_traceback_plain(moves, crow, ei, ej, W))
         err = max(exact('banded_walk records', rec_k, rec_p),
                   exact('banded_walk final', fin_k, fin_p))
         nbytes, ops, steps = banded_walk_cost(rec_k, fin_k)
         results.append({'name': 'banded_walk', 'W': W, 'bt': B,
-                        'ms': ms, 'plain_ms': plain_ms,
+                        'n_pad': n_pad, 'summary': summary, 'ms': ms,
+                        'plain_ms': plain_ms,
                         'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
-                        'steps': steps, 'max_abs_err': err})
+                        'steps': steps, 'us_per_step': 1e3 * ms / steps,
+                        'max_abs_err': err})
         log('W=%4d B=%2d n_pad=%d  banded_walk %.3f ms (plain %.0f ms, %d '
-            'steps)  bit-equal' % (W, B, n_pad, ms, plain_ms, steps))
+            'steps, %.4f us/step)  bit-equal'
+            % (W, B, n_pad, ms, plain_ms, steps, 1e3 * ms / steps))
 
     # kernel 6 against its plain version on the phase's tasks
     for W in (512, 1024, 2048):
-        walk_against_plain(tasks, SEMI_GLOBAL, W)
+        walk_against_plain(tasks, SEMI_GLOBAL, W, summary=W == 2048)
 
     # align_banded on FULLY_GLOBAL tasks whose corridors zigzag: the wave
     # route (kernels 1, 2) finds no path for some, which retry (kernels 3,
@@ -929,6 +1000,7 @@ def phase_retry(args, dev, results, report):
     # tasks the call retried in the JAX package's layout
     walk_against_plain([t for t, _ in retried], FULLY_GLOBAL,
                        bo.band_width(band))
+    report['retry_wide'] = retry_wide(args, dev, scoring)
     report['retry'] = {
         'tasks': len(tasks), 'launches': launches, 'wall_s': wall,
         'fetch_bytes_walk': walk_ctr['retry.fetch_bytes'],
@@ -947,6 +1019,86 @@ def phase_retry(args, dev, results, report):
     return {k: glaunch[k] for k in ('banded', 'banded_walk')}
 
 
+def retry_wide(args, dev, scoring):
+    """The retry path at the row route's W 4096: _align_banded_moves_path
+    on bridging-shaped tasks (kernels 3 and 6 on the card) equal to the
+    CPU route; and align_banded at W 4096 (the row kernels) with every
+    other track's walk forced to end in a band escape, so those tasks
+    retry inside the call, equal to the CPU route."""
+    import numpy as np
+    import torch
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.pairwise import SEMI_GLOBAL
+    W, band = 4096, 1500
+    rng = np.random.default_rng(args.seed + 6)
+    tasks = [bo.BandedTask(*t) for t in bridging_like_tasks(rng, 4)]
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    got, ctr = retry_counters(lambda: bo._align_banded_moves_path(
+        tasks, scoring, SEMI_GLOBAL, W, True, device=dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: cuda_lib.LAUNCHES[k] for k in ('banded', 'banded_walk')}
+    t0 = time.time()
+    want = bo._align_banded_moves_path(tasks, scoring, SEMI_GLOBAL, W, True,
+                                       device='cpu')
+    cpu_wall = time.time() - t0
+    bad = sum(retally(t.q, t.r, pa, scoring) != pa.score
+              for t, pa in zip(tasks, got) if pa.cigar)
+    log('retry path at W %d: %d bridging-shaped tasks (%s bp), launches %s, '
+        '%.2f s on the card (CPU route %.1f s); %d CIGARs, %d off their '
+        'score; equal to the CPU route'
+        % (W, len(tasks), [len(t.q) for t in tasks], json.dumps(launches),
+           wall, cpu_wall, sum(1 for p in got if p.cigar), bad))
+    if got != want:
+        raise AssertionError('the retry path at W %d differs from the CPU '
+                             'route' % W)
+    if bad or min(launches.values()) <= 0 \
+            or ctr.get('retry.device_walk', 0) <= 0:
+        raise AssertionError('the retry path at W %d did not walk on the '
+                             'card into CIGARs that re-tally' % W)
+
+    inner = tk.tape_traceback
+
+    def forced(*a, **kw):
+        records, fin = inner(*a, **kw)
+        fin = fin.clone()
+        fin[::2, :, 2] = 2
+        return records, fin
+
+    ftasks = [bo.BandedTask(*t) for t in bridging_like_tasks(rng, 6)]
+    tk.tape_traceback = forced
+    cuda_lib.reset_launches()
+    try:
+        fgot, fctr = retry_counters(lambda: bo.align_banded(
+            ftasks, scoring, SEMI_GLOBAL, band, True, device=dev))
+    finally:
+        tk.tape_traceback = inner
+    flaunch = dict(cuda_lib.LAUNCHES)
+    fwant = bo.align_banded(ftasks, scoring, SEMI_GLOBAL, band, True,
+                            device='cpu')
+    used = ('tape_fwd', 'tape_walk', 'banded', 'banded_walk')
+    log('align_banded at W %d, every other walk forced to a band escape: '
+        '%d tasks, %d retried, retry.device_walk %d, launches %s; equal to '
+        'the CPU route' % (W, len(ftasks), fctr.get('tape.retry', 0),
+                           fctr.get('retry.device_walk', 0),
+                           json.dumps({k: flaunch[k] for k in used})))
+    if fgot != fwant:
+        raise AssertionError('align_banded with forced band escapes differs '
+                             'from the CPU route')
+    if fctr.get('tape.retry', 0) <= 0 or min(flaunch[k] for k in used) <= 0:
+        raise AssertionError('the forced band escapes did not retry on '
+                             'kernels 3 and 6')
+    return {'W': W, 'tasks': len(tasks), 'launches': launches,
+            'wall_s': wall, 'cpu_wall_s': cpu_wall,
+            'forced': {'tasks': len(ftasks),
+                       'retried': fctr.get('tape.retry', 0),
+                       'device_walk': fctr.get('retry.device_walk', 0),
+                       'launches': {k: flaunch[k] for k in used}}}
+
+
 def sync(dev):
     import torch
     if dev.type == 'cuda':
@@ -956,7 +1108,8 @@ def sync(dev):
 def row_kernels_against_plain(tp, W, scoring, config, dev, results,
                               layout):
     """Both row kernels on one TapeLaunch against their plain versions:
-    the forward at each cluster size C (each launch timed alone), moves,
+    the forward at each cluster size C that fits the band (the tiled
+    kernel where none does; each launch timed alone), moves,
     hatn and best bit-equal over each track's real groups; the walker's
     records and fin bit-equal. One result row each (the forward's one per
     C, the launch's own C flagged)."""
@@ -974,7 +1127,11 @@ def row_kernels_against_plain(tp, W, scoring, config, dev, results,
     own = tk.launch_cluster(bt, W, dev)
     rows_real = 32 * int(ngt.max())
     line = []
-    for C in tk.CLUSTER_SIZES:
+    # every cluster size whose blocks fit the band; the tiled kernel (C 1)
+    # where none does
+    clusters = [C for C in tk.CLUSTER_SIZES
+                if tk.region_width(W) // C <= tk.MAX_BLOCK_LANES] or [1]
+    for C in clusters:
         fwd = lambda: tk.tape_forward_cuda(rowinfo, gplane, up[1], ngt,
                                            scoring, config, W, True,
                                            cluster=C)
@@ -1125,15 +1282,19 @@ def phase_tape_kernels(rng, dev, results, report):
         row_kernels_against_plain(tp, W, scoring, config, dev, results,
                                   'jax')
     # the card's layout (one task a track): 12 tracks of mixed lengths,
-    # about a bridging call's banded pairs
-    for W in (4096, 8192):
-        sizes = [int(x) for x in rng.integers(600, 1300, 12)]
+    # about a bridging call's banded pairs, up to W 32768 (C >= 2 at W
+    # 16384, C >= 4 at 32768); then one short task at W 131072, too wide
+    # for every cluster size (the tiled kernel)
+    for W, n_tasks in ((4096, 12), (8192, 12), (16384, 12), (32768, 12),
+                       (131072, 1)):
+        sizes = [int(x) for x in rng.integers(600, 1300, n_tasks)] \
+            if n_tasks > 1 else [230]
         tasks = [bo.BandedTask(*t) for t in
                  synth.banded_tasks(rng, sizes, drift=True)]
         launches = build_row_launches(tasks, W, bo.build_corridor)
         if len(launches) != 1 or launches[0].qf.shape[0] != len(tasks):
-            raise AssertionError('12 short tasks did not make one launch '
-                                 'of 12 tracks')
+            raise AssertionError('%d short tasks did not make one launch '
+                                 'of %d tracks' % (n_tasks, n_tasks))
         row_kernels_against_plain(launches[0], W, scoring, config, dev,
                                   results, 'card')
     row_layout_ab(rng, dev, scoring, config, report)
@@ -1765,7 +1926,8 @@ def main():
     # the row-tape kernels' summary row is phase 6's card layout at the
     # bridging path's W 4096 (the forward at the launch's own cluster
     # size); the wave kernels' the assembly's (the card's layout at W 512);
-    # the others' the widest main-path shape measured
+    # the retry pair's the flagged shapes (kernel 3: phase 3's W 1024,
+    # kernel 6: phase 5's W 2048); the others' the widest shape measured
     kernels = []
     for kname, (src, replaces) in sources.items():
         rows = [r for r in kres if r['name'] == kname]
@@ -1773,8 +1935,11 @@ def main():
                   and r['W'] == 4096 and r.get('own_C', True)]
         wave = [r for r in rows if r.get('layout') == 'task'
                 and r['W'] == 512]
+        flagged = [r for r in rows if r.get('summary')]
         if kname.startswith('tape_') and shaped:
             row = shaped[0]
+        elif flagged:
+            row = flagged[0]
         elif wave:
             row = wave[0]
         else:

@@ -98,12 +98,58 @@ def test_gpu_kernels_bit_equal_to_plain(cfg, W, bt):
     tp = build_wavetapes(tasks, W, bo.build_corridor, bt=bt)[0]
     _wave_kernels_match_plain(tp, scoring, config, W, dev)
 
-    host = bo._pack_bucket(tasks, list(range(len(tasks))), 512, 512, W,
+    _banded_kernels_match_plain(tasks, scoring, config, W, dev)
+
+
+def _banded_kernels_match_plain(tasks, scoring, config, W, dev, lanes=(0,)):
+    """The banded kernel (at each `lanes` a thread) against its plain
+    version on tasks packed into one bucket: score, ends and moves rows
+    [0, n_act); the banded walker against its plain version on the
+    kernel's moves. Returns the walker's records."""
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops import traceback_kernels as tbk
+    n_pad = bo.bucket_length(max(len(t.q) for t in tasks))
+    m_pad = bo.bucket_length(max(len(t.r) for t in tasks))
+    host = bo._pack_bucket(tasks, list(range(len(tasks))), n_pad, m_pad, W,
                            bk.BT)
     bargs = [torch.from_numpy(x).to(dev) for x in host]
-    for g, w in zip(bk.banded_batch_cuda(*bargs, scoring, config, W, True),
-                    bk.banded_batch_plain(*bargs, scoring, config, W, True)):
-        assert torch.equal(g, w)
+    n_acts = bargs[3]
+    want = bk.banded_batch_plain(*bargs, scoring, config, W, True)
+    for ln in lanes:
+        got = bk.banded_batch_cuda(*bargs, scoring, config, W, True,
+                                   lanes=ln)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w), 'lanes %d' % ln
+        assert torch.equal(bk.moves_rows_real(got[3], n_acts),
+                           bk.moves_rows_real(want[3], n_acts)), \
+            'lanes %d' % ln
+    score, ei, ej, moves = got
+    crow = bargs[2][:, 1:].contiguous()
+    rec, fin = tbk.banded_traceback_cuda(moves, crow, ei, ej, W)
+    rec_p, fin_p = tbk.banded_traceback_plain(moves, crow, ei, ej, W)
+    assert torch.equal(rec, rec_p) and torch.equal(fin, fin_p)
+    return rec
+
+
+@pytest.mark.parametrize('W', [128, 512, 1024, 2048, 4096, 16384])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_banded_kernels_bit_equal_to_plain(cfg, W):
+    """Kernels 3 and 6 of the retry path against their plain versions at
+    the wave route's widths and the row route's, on drifting and zigzag
+    corridors (rows drifting up to MAX_SHIFT), the fast kernel at each
+    lanes-a-thread template that fits."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(29, [180, 700, 90, 400, 1300, 64], drift=True)
+             + zigzag_tasks(3, n_tasks=6)]
+    lanes = [ln for ln in (2, 4, 8) if (W + 128) // ln <= 576] or [0]
+    rec = _banded_kernels_match_plain(tasks, Scoring(*SCORING_T),
+                                      AlignConfig(*CONFIGS[cfg]), W, dev,
+                                      lanes)
+    assert int((rec != 0).sum()) > 1000
 
 
 @pytest.mark.parametrize('W', [128, 512, 1024, 2048])
@@ -221,6 +267,27 @@ def test_gpu_retry_path_matches_cpu():
     assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
 
 
+@pytest.mark.parametrize('W', [4096, 16384])
+@pytest.mark.parametrize('cfg', ['semi', 'global'])
+def test_gpu_retry_path_wide_matches_cpu(cfg, W):
+    """The retry path at the row route's widths runs kernels 3 and 6 on
+    the card and equals the CPU route."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    tasks = [bo.BandedTask(*t) for t in
+             tasks_np(19, [300, 480, 120], drift=True)]
+    args = (Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W, True)
+    cuda_lib.reset_launches()
+    got = bo._align_banded_moves_path(tasks, *args, device=dev)
+    assert cuda_lib.LAUNCHES['banded'] > 0
+    assert cuda_lib.LAUNCHES['banded_walk'] > 0
+    want = bo._align_banded_moves_path(tasks, *args, device='cpu')
+    assert [pa_key(p) for p in got] == [pa_key(p) for p in want]
+    assert all(p.cigar for p in got)
+
+
 def _row_kernels_match_plain(tp, scoring, config, W, dev, clusters):
     """Both row kernels against their plain versions on one TapeLaunch,
     the forward at each cluster size: moves, hatn and best over each
@@ -276,14 +343,16 @@ def test_gpu_tape_kernels_bit_equal_to_plain(cfg, W, bt):
     assert int((rec != 0).sum()) > 1000
 
 
-@pytest.mark.parametrize('W', [4096, 8192])
+@pytest.mark.parametrize('W', [4096, 8192, 16384, 32768])
 @pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
 def test_gpu_row_layout_kernels_bit_equal_to_plain(cfg, W):
     """The card's row layout (one task a track, tracks of different
-    lengths) through the forward kernel at each cluster size 1, 2, 4 and 8
-    and the walker, against their plain versions."""
+    lengths) through the forward kernel at each cluster size that fits
+    the band (1, 2, 4 and 8 up to W 8192; C >= 2 at W 16384, C >= 4 at W
+    32768) and the walker, against their plain versions."""
     dev = _cuda()
     from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import tape_kernels as tk
     from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
     from unicycler_tpu_torch.ops.tape import build_row_launches
     tasks = [bo.BandedTask(*t) for t in
@@ -291,10 +360,35 @@ def test_gpu_row_layout_kernels_bit_equal_to_plain(cfg, W):
                       drift=True)]
     launches = build_row_launches(tasks, W, bo.build_corridor)
     assert len(launches) == 1 and launches[0].qf.shape[0] == len(tasks)
+    clusters = [C for C in (1, 2, 4, 8)
+                if tk.region_width(W) // C <= tk.MAX_BLOCK_LANES]
+    assert clusters == {4096: [1, 2, 4, 8], 8192: [1, 2, 4, 8],
+                        16384: [2, 4, 8], 32768: [4, 8]}[W]
     rec = _row_kernels_match_plain(
         launches[0], Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W,
-        dev, [1, 2, 4, 8])
+        dev, clusters)
     assert int((rec != 0).sum()) > 2000
+
+
+@pytest.mark.parametrize('cfg', ['semi', 'global', 'path'])
+def test_gpu_row_kernels_short_task_w131072(cfg):
+    """A short task (<= 256 rows) at W 131,072, too wide for every
+    cluster size: the tiled forward kernel (one block a track) and the
+    walker against their plain versions."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import tape_kernels as tk
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    from unicycler_tpu_torch.ops.tape import build_row_launches
+    W = 131072
+    assert tk.tiled(W) and tk.launch_cluster(1, W, dev) == 1
+    tasks = [bo.BandedTask(*t) for t in tasks_np(37, [230], drift=True)]
+    launches = build_row_launches(tasks, W, bo.build_corridor)
+    assert len(launches) == 1 and launches[0].L_real <= 256
+    rec = _row_kernels_match_plain(
+        launches[0], Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W,
+        dev, [1])
+    assert int((rec != 0).sum()) > 150
 
 
 def test_gpu_cluster_size_fills_the_card():

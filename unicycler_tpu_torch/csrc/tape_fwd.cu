@@ -570,7 +570,202 @@ __global__ void __launch_bounds__(MAXT, 1) tape_fwd_kernel(Params p) {
   cluster.sync();  // no block leaves while another may still write to it
 }
 
-// lanes a thread for a block of BL lanes (0: too wide)
+// The tiled kernel, for a track whose region is wider than the widest
+// template's block (GWp > 17 * 512 lanes at C = 1; W >= 131,072 in
+// practice): one block of TT threads a track, the carries and the row's G,
+// diagonal, E prefixes, F extension bits and move words in a global
+// scratch (TILED_SCRATCH ints a lane); elementwise passes with
+// neighbouring threads on neighbouring lanes (coalesced), and E by a scan
+// of each warp's segment of lanes; five block barriers a row. Simple, and
+// exact: the same lane arithmetic as tape_fwd_kernel (and the plain
+// version) over every lane of the region.
+constexpr int TT = 1024;
+constexpr int TILED_SCRATCH = 8;
+
+// warp w scans the candidates cand(k) of lanes [w S, (w + 1) S), 32 a step,
+// writing each lane's exclusive prefix inside the segment to ex[k] (NEG at
+// the segment's start); returns the segment's total
+template <typename Cand>
+__device__ __forceinline__ int segment_scan(int n, int S, int* ex, Cand cand) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = NEG;
+  const int k1 = min((warp + 1) * S, n);
+  for (int k0 = warp * S; k0 < k1; k0 += 32) {
+    const int k = k0 + lane;
+    int incl = k < k1 ? cand(k) : NEG;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl = max(incl, v);
+    }
+    int excl = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl = NEG;
+    if (k < k1) ex[k] = max(carry, excl);
+    carry = max(carry, __shfl_sync(FULL, incl, 31));
+  }
+  return carry;
+}
+
+__global__ void __launch_bounds__(TT) tape_fwd_tiled(Params p, int* scratch) {
+  __shared__ int segtot[TT / 32], segoff[TT / 32], rv[TT / 32], ri[TT / 32];
+  const int b = blockIdx.x;
+  const int NGR = p.L / G;
+  const int ng = min(p.ngt[b], NGR);
+  if (ng <= 0) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int GWp = p.GWp, W = p.W, open_ = p.open_, ext = p.ext;
+  int* Hb = scratch + (size_t)b * TILED_SCRATCH * GWp;  // [2][GWp]
+  int* Fv = Hb + 2 * GWp;
+  int* Gv = Fv + GWp;   // G = max(diag, F); the realignment's F
+  int* Dv = Gv + GWp;   // the diagonal term
+  int* Ev = Dv + GWp;   // E's prefix in its segment
+  int* Xv = Ev + GWp;   // F's extension bit
+  int* Mv = Xv + GWp;   // the lane's move word over 8 rows
+  const int S = (GWp / (TT / 32) + 31) / 32 * 32;
+  const int* gpl = p.gplane + (size_t)b * NGR * GP_N;
+  const int* rowp = p.rowinfo + (size_t)b * p.L;
+  const int8_t* rf = p.r_flat + (size_t)b * p.M;
+  int* mv_out = p.moves ? p.moves + (size_t)b * (p.L / 8) * GWp : nullptr;
+  for (int k = tid; k < GWp; k += TT) {
+    Hb[k] = NEG;
+    Fv[k] = NEG;
+  }
+  int cur = 0;
+  int tbv = NEG, tbi = 0;  // the thread's running best last column
+  for (int g = 0; g < ng; g++) {
+    const int* gq = gpl + (size_t)g * GP_N;
+    const int jr = gq[GP_JR], m_g = gq[GP_M], lb = gq[GP_LB];
+    const int adv = gq[GP_ADV], rst = gq[GP_RST], c0 = gq[GP_C0], rstart = gq[GP_RSTART];
+    __syncthreads();
+    if (!rst && adv > 0) {  // realign the carries left by adv lanes
+      const int* Hc = Hb + cur * GWp;
+      int* Hn = Hb + (1 - cur) * GWp;
+      for (int k = tid; k < GWp; k += TT) {
+        const int src = k + adv;
+        Hn[k] = src < GWp ? Hc[src] : NEG;
+        Gv[k] = src < GWp ? Fv[src] : NEG;
+      }
+      __syncthreads();
+      for (int k = tid; k < GWp; k += TT) Fv[k] = Gv[k];
+      cur ^= 1;
+    }
+    if (rst) {
+      int* Hc = Hb + cur * GWp;
+      for (int k = tid; k < GWp; k += TT) {
+        Hc[k] = boundary(jr + k, m_g, c0, p);
+        Fv[k] = NEG;
+      }
+      tbv = NEG;
+      tbi = 0;
+    }
+    const int h0m1 = boundary(jr - 1, m_g, c0, p);
+    __syncthreads();
+    for (int r = 0; r < G; ++r) {
+      const int t = g * G + r;
+      const int rowv = rowp[t];
+      const int d = rowv & 255;
+      const bool cap = (rowv >> 8) & 1;
+      const bool act = (rowv >> 9) & 1;
+      const int qv = (rowv >> 16) & 255;
+      const int local_i = lb + r;
+      const int m_col = act ? m_g : -1;
+      const int col0 = p.fs1 ? 0 : open_ + (local_i - 1) * ext;
+      const int* Hc = Hb + cur * GWp;
+      int* Hn = Hb + (1 - cur) * GWp;
+      for (int k = tid; k < GWp; k += TT) {
+        const int j = jr + k;
+        const bool vb = k >= d && k < d + W;
+        const bool vef = vb && j >= 1 && j <= m_col;
+        const int fo = Fv[k];
+        const int fe = fo + ext;
+        const int fnew = max(Hc[k] + open_, fe);
+        Xv[k] = (fnew == fe && fo > NEG_HALF) ? 8 : 0;
+        Fv[k] = fnew;
+        const int hd = k > 0 ? Hc[k - 1] : ((r == 0 && rst) ? h0m1 : NEG);
+        const int sub = (int)(uint8_t)rf[rstart + k] == qv ? p.match_s : p.mismatch;
+        int dg = vef ? hd + sub : NEG;
+        if (vb && j == 0 && m_col >= 0) dg = col0;
+        Dv[k] = dg;
+        Gv[k] = max(dg, vef ? fnew : NEG);
+      }
+      __syncthreads();
+      const int tot =
+          segment_scan(GWp, S, Ev, [&](int k) { return Gv[k] + open_ - (k + 1) * ext; });
+      if (lane == 0) segtot[warp] = tot;
+      __syncthreads();
+      if (tid < 32) {
+        int v = segtot[lane];
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int x = __shfl_up_sync(FULL, v, o);
+          if (lane >= o) v = max(v, x);
+        }
+        const int ex = __shfl_up_sync(FULL, v, 1);
+        segoff[lane] = lane == 0 ? NEG : ex;
+      }
+      __syncthreads();
+      const int sh = 4 * (t & 7);
+      for (int k = tid; k < GWp; k += TT) {
+        // E of lane k and of lane k - 1, from the prefix of their segments
+        const int j = jr + k;
+        const bool vb = k >= d && k < d + W;
+        const bool vh = vb && j >= 0 && j <= m_col;
+        int e = max(segoff[k / S], Ev[k]) + k * ext;
+        e = (vb && j >= 1 && j <= m_col && e > NEG_HALF) ? e : NEG;
+        int ep = NEG;
+        if (k > 0) {
+          const int kp = k - 1;
+          ep = max(segoff[kp / S], Ev[kp]) + kp * ext;
+          ep = (kp >= d && kp < d + W && j - 1 >= 1 && j - 1 <= m_col && ep > NEG_HALF) ? ep : NEG;
+        }
+        const int gg = Gv[k];
+        const int hn = vh ? max(gg, e) : NEG;
+        if (mv_out) {
+          const bool eext = e == ep + ext && ep > NEG_HALF;
+          const unsigned m4 = (hn == Dv[k] ? 0u : (hn == e ? 1u : 2u)) | (eext ? 4u : 0u) |
+                              (unsigned)Xv[k];
+          const unsigned w = sh == 0 ? m4 : ((unsigned)Mv[k] | (m4 << sh));
+          Mv[k] = (int)w;
+          if ((t & 7) == 7) mv_out[(size_t)(t >> 3) * GWp + k] = (int)w;
+        }
+        if (vh && j == m_col && hn > tbv) {
+          tbv = hn;
+          tbi = local_i;
+        }
+        if (cap) p.hatn[((size_t)g * p.B + b) * GWp + k] = hn;
+        Hn[k] = hn;
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+    // the group's running best, merged over the block: the larger value,
+    // then the earlier row
+    int v = tbv, ix = tbi;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      best_merge(v, ix, __shfl_xor_sync(FULL, v, o), __shfl_xor_sync(FULL, ix, o));
+    if (lane == 0) {
+      rv[warp] = v;
+      ri[warp] = ix;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      v = rv[lane];
+      ix = ri[lane];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        best_merge(v, ix, __shfl_xor_sync(FULL, v, o), __shfl_xor_sync(FULL, ix, o));
+      if (lane == 0) {
+        int* o = p.best + ((size_t)g * p.B + b) * 2;
+        o[0] = v;
+        o[1] = ix;
+      }
+    }
+  }
+}
+
+// lanes a thread for a block of BL lanes (0: too wide for a template;
+// at C = 1 the tiled kernel takes it)
 int lanes_per_thread(int BL) {
   for (int per : {2, 3, 5, 9, 17})
     if (BL <= per * MAXT) return per;
@@ -625,6 +820,11 @@ bool valid_shape(int GWp, int C) {
          GWp / C >= G * 4 && lanes_per_thread(GWp / C) > 0;
 }
 
+// a track of GWp lanes at C = 1 too wide for every template
+bool tiled_shape(int GWp, int C) {
+  return C == 1 && GWp % 128 == 0 && lanes_per_thread(GWp) == 0;
+}
+
 }  // namespace
 
 #define TAPE_FWD_DISPATCH(CALL)                          \
@@ -637,20 +837,27 @@ bool valid_shape(int GWp, int C) {
     default: return (int)cudaErrorInvalidValue;          \
   }
 
-// C blocks a track (1, 2, 4 or 8), each owning GWp / C >= 128 region lanes.
+// C blocks a track (1, 2, 4 or 8), each owning GWp / C >= 128 region lanes;
+// a region too wide for every template runs the tiled kernel at C = 1,
+// with `scratch` ((B, 8 GWp) int32).
 extern "C" int tape_fwd_launch(const int* rowinfo, const int* gplane,
                                const int8_t* r_flat, int M, const int* ngt,
-                               int* moves, int* hatn, int* best, int B, int L,
-                               int W, int GWp, int C, int match_s,
-                               int mismatch, int open_, int ext, int fs1,
-                               int fs2, void* stream) {
+                               int* moves, int* hatn, int* best, int* scratch,
+                               int B, int L, int W, int GWp, int C,
+                               int match_s, int mismatch, int open_, int ext,
+                               int fs1, int fs2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool tiled = tiled_shape(GWp, C);
   if (B <= 0 || L % G != 0 || W < 128 || GWp < W || M % 16 != 0 || M < GWp ||
-      !valid_shape(GWp, C))
+      !(valid_shape(GWp, C) || tiled) || (tiled && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const int BL = GWp / C;
   Params p{rowinfo, gplane, r_flat, ngt, moves, hatn, best, B, L, M, W, GWp, BL,
            region_bytes(BL), match_s, mismatch, open_, ext, fs1, fs2};
+  if (tiled) {
+    tape_fwd_tiled<<<B, TT, 0, st>>>(p, scratch);
+    return (int)cudaGetLastError();
+  }
 #define FWD_CALL(PER) launch<PER>(p, C, st)
   TAPE_FWD_DISPATCH(FWD_CALL)
 #undef FWD_CALL

@@ -11,6 +11,14 @@ end_i, end_j) and, with need_moves, the 4-bit moves of every row in
 nibble-plane layout ((B, n_pad, W/8) int32: word w holds lanes
 {w, w + W/8, ..., w + 7W/8}), which native/cigar_decode.cpp walks.
 
+The corridor's rows drift right by 0..MAX_SHIFT columns (c[i] - c[i - 1];
+ops/banded.build_corridor caps them so), as the TPU kernel requires.
+Moves rows at and past a task's n_act are unspecified: the CUDA kernel
+stops each task after its row n_act (score and ends do not depend on
+later rows, and every walk starts at end_i <= n_act), so compare moves
+over rows [0, n_act) (moves_rows_real). The plain version still computes
+every row.
+
 banded_batch launches csrc/banded.cu for tensors on a CUDA device and
 runs banded_batch_plain, the row-by-row twin of _banded_single, only for
 tensors on the CPU: that twin is the CPU route's DP.
@@ -21,8 +29,21 @@ import torch
 from . import cuda_lib
 from .pairwise import (DIAG, E_EXT_BIT, E_SRC, F_EXT_BIT, F_SRC, NEG,
                        AlignConfig, Scoring)
+from .tape import MAX_SHIFT
 
 BT = 32          # retry batches are padded to a multiple of this
+# the widest band of csrc/banded.cu's fast kernel; wider bands take its
+# wide kernel, which needs WIDE_SCRATCH ints of scratch a lane and task
+FAST_MAX_W = 4096
+WIDE_SCRATCH = 10
+
+
+def moves_rows_real(moves, n_acts):
+    """moves with every row at or past its task's n_act zeroed: the rows
+    the CUDA kernel defines."""
+    rows = torch.arange(moves.shape[1], device=moves.device)[None, :]
+    keep = rows < n_acts.to(moves.device).to(torch.int64)[:, None]
+    return torch.where(keep[:, :, None], moves, 0)
 
 
 def pack_moves_rows(moves4):
@@ -161,8 +182,12 @@ def _first_argmax(x):
 
 
 def banded_batch_cuda(q, r_ext, c, n_acts, m_acts, scoring: Scoring,
-                      config: AlignConfig, W: int, need_moves: bool):
-    """Launch csrc/banded.cu; same contract as banded_batch_plain."""
+                      config: AlignConfig, W: int, need_moves: bool,
+                      lanes=0):
+    """Launch csrc/banded.cu; banded_batch_plain's contract, with moves
+    rows at and past each task's n_act unspecified. `lanes` forces the
+    fast kernel's lanes a thread (2, 4 or 8; 0: its default), for
+    measuring."""
     B, n_pad = q.shape
     dev = q.device
     for name, x, dt in (('q', q, torch.int8), ('r_ext', r_ext, torch.int8),
@@ -171,25 +196,34 @@ def banded_batch_cuda(q, r_ext, c, n_acts, m_acts, scoring: Scoring,
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError('%s must be a contiguous %s tensor on %s'
                              % (name, dt, dev))
-    if c.shape != (B, n_pad + 1) or r_ext.shape[0] != B:
+    if c.shape != (B, n_pad + 1) or r_ext.shape[0] != B \
+            or r_ext.shape[1] < 2 * W or W % 128 or W < 128:
         raise ValueError('inconsistent banded batch shapes')
+    drift = c[:, 1:] - c[:, :-1]
+    if bool(((drift < 0) | (drift > MAX_SHIFT)).any()):
+        raise ValueError('corridor rows must drift right by 0..%d columns'
+                         % MAX_SHIFT)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     end_i = torch.empty(B, dtype=torch.int32, device=dev)
     end_j = torch.empty(B, dtype=torch.int32, device=dev)
     moves = torch.empty((B, n_pad, W // 8), dtype=torch.int32, device=dev) \
         if need_moves else None
+    scratch = torch.empty((B, WIDE_SCRATCH * W), dtype=torch.int32,
+                          device=dev) if W > FAST_MAX_W else None
     lib = cuda_lib.lib()
-    with cuda_lib.timed('banded', dev, (q, r_ext, c,
+    with cuda_lib.timed('banded', dev, (q, r_ext, c, n_acts,
                                            cuda_lib.shape_only(moves))):
         err = lib.banded_launch(
             q.data_ptr(), n_pad, r_ext.data_ptr(), r_ext.shape[1],
             c.data_ptr(), n_acts.data_ptr(), m_acts.data_ptr(),
             moves.data_ptr() if need_moves else None, score.data_ptr(),
-            end_i.data_ptr(), end_j.data_ptr(), B, W, int(scoring.match),
-            int(scoring.mismatch), int(scoring.gap_open),
-            int(scoring.gap_extend), int(config.free_start_s1),
-            int(config.free_start_s2), int(config.free_end_s1),
-            int(config.free_end_s2), cuda_lib.stream_ptr(dev))
+            end_i.data_ptr(), end_j.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, B, W,
+            int(scoring.match), int(scoring.mismatch),
+            int(scoring.gap_open), int(scoring.gap_extend),
+            int(config.free_start_s1), int(config.free_start_s2),
+            int(config.free_end_s1), int(config.free_end_s2), int(lanes),
+            cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, 'banded')
     cuda_lib.LAUNCHES['banded'] += 1
     return score, end_i, end_j, moves

@@ -135,14 +135,15 @@ _SIGNATURES = {
     # *blocks per SM, *tracks per block
     'wavetape_walk_occupancy': [_P, _P],
     # q, n_pad, r_ext, RL, c, n_acts, m_acts, moves, score, end_i, end_j,
-    # B, W, match, mismatch, open, ext, fs1, fs2, fe1, fe2, stream
-    'banded_launch': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # rowinfo, gplane, r_flat, M, ngt, moves, hatn, best, B, L, W, GWp,
-    # cluster size, match, mismatch, open, ext, free_start_s1,
+    # scratch, B, W, match, mismatch, open, ext, fs1, fs2, fe1, fe2,
+    # lanes a thread, stream
+    'banded_launch': [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # rowinfo, gplane, r_flat, M, ngt, moves, hatn, best, scratch, B, L,
+    # W, GWp, cluster size, match, mismatch, open, ext, free_start_s1,
     # free_start_s2, stream
-    'tape_fwd_launch': [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _P],
+    'tape_fwd_launch': [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # cluster size, GWp, *clusters resident at once
     'tape_fwd_clusters': [_I, _I, _P],
     # moves, c_rel, jr_rows, n_tasks, end_abs, end_j, seg_start, records,

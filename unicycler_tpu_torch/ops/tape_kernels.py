@@ -119,9 +119,34 @@ def real_rows(moves, hatn, best, ngt):
 # region lanes a block of a cluster owns
 CLUSTER_SIZES = (8, 4, 2, 1)
 MIN_BLOCK_LANES = 128
-# the most region lanes one block takes (csrc/tape_fwd.cu's widest
-# template: 17 lanes a thread, 512 threads)
-MAX_BLOCK_LANES = 17 * 512
+# csrc/tape_fwd.cu's templates (lanes a thread) and its threads a block
+# at most; the most region lanes one block of a cluster takes
+LANE_TEMPLATES = (2, 3, 5, 9, 17)
+MAX_THREADS = 512
+MAX_BLOCK_LANES = LANE_TEMPLATES[-1] * MAX_THREADS
+# ints of scratch a region lane of the tiled kernel
+TILED_SCRATCH = 8
+
+
+def tiled(W):
+    """True when band W is too wide for every cluster size: csrc/tape_fwd.cu
+    then runs its tiled kernel, one block a track (C = 1)."""
+    return region_width(W) // max(CLUSTER_SIZES) > MAX_BLOCK_LANES
+
+
+def block_plan(W, C):
+    """The kernel csrc/tape_fwd.cu runs at band W with C blocks a track,
+    by its own rule (lanes_per_thread, valid_shape, tiled_shape):
+    ('cluster', lanes a thread) or ('tiled', 0); None where it refuses
+    the launch."""
+    GWp = region_width(W)
+    if C not in CLUSTER_SIZES or GWp % C or GWp // C < MIN_BLOCK_LANES:
+        return None
+    per = next((p for p in LANE_TEMPLATES if GWp // C <= p * MAX_THREADS),
+               0)
+    if per:
+        return ('cluster', per)
+    return ('tiled', 0) if C == 1 else None
 
 
 def cluster_size(tracks, W, sms, resident):
@@ -130,11 +155,12 @@ def cluster_size(tracks, W, sms, resident):
     at least MIN_BLOCK_LANES region lanes a block and every cluster
     resident at once (tracks <= resident(C), the card's
     cudaOccupancyMaxActiveClusters), but never so few that a block would
-    own more than MAX_BLOCK_LANES lanes."""
+    own more than MAX_BLOCK_LANES lanes. A band too wide for every C
+    takes 1, the tiled kernel's one block a track."""
     GWp = region_width(W)
     fits = [C for C in CLUSTER_SIZES if GWp // C <= MAX_BLOCK_LANES]
     if not fits:
-        raise ValueError('W = %d is too wide for the row kernel' % W)
+        return 1
     for C in fits:
         if tracks * C <= sms and GWp // C >= MIN_BLOCK_LANES \
                 and tracks <= resident(C):
@@ -319,7 +345,8 @@ def tape_forward_cuda(rowinfo, gplane, r_flat, ngt, scoring: Scoring,
     track's first ngt[b] groups (ngt: (B,) int32, track_groups); moves and
     best of the groups past them are left unwritten, hatn zero. Each
     track runs on a cluster of `cluster` blocks (by default
-    launch_cluster's choice)."""
+    launch_cluster's choice); a band too wide for every cluster size
+    (tiled) runs the tiled kernel, one block a track."""
     B, L = rowinfo.shape
     dev = rowinfo.device
     GWp = region_width(W)
@@ -339,11 +366,15 @@ def tape_forward_cuda(rowinfo, gplane, r_flat, ngt, scoring: Scoring,
                                    (rowinfo, gplane, r_flat)):
         raise ValueError('rowinfo, gplane and r_flat rows must start on '
                          '16-byte boundaries')
-    C = launch_cluster(B, W, dev) if cluster is None else int(cluster)
-    if C not in CLUSTER_SIZES or GWp // C > MAX_BLOCK_LANES:
+    wide = tiled(W)
+    C = 1 if wide else (launch_cluster(B, W, dev) if cluster is None
+                        else int(cluster))
+    if block_plan(W, C) is None:
         raise ValueError('cluster size %d does not fit W = %d' % (C, W))
     moves = torch.empty((B, L // 8, GWp), dtype=torch.int32, device=dev) \
         if need_moves else None
+    scratch = torch.empty((B, TILED_SCRATCH * GWp), dtype=torch.int32,
+                          device=dev) if wide else None
     hatn = torch.zeros((L // G, B, GWp), dtype=torch.int32, device=dev)
     # each block's running best last column and its row
     parts = torch.empty((L // G, B, C, 2), dtype=torch.int32, device=dev)
@@ -356,7 +387,8 @@ def tape_forward_cuda(rowinfo, gplane, r_flat, ngt, scoring: Scoring,
             rowinfo.data_ptr(), gplane.data_ptr(), r_flat.data_ptr(),
             r_flat.shape[1], ngt.data_ptr(),
             moves.data_ptr() if need_moves else None,
-            hatn.data_ptr(), parts.data_ptr(), B, L, W, GWp, C,
+            hatn.data_ptr(), parts.data_ptr(),
+            scratch.data_ptr() if wide else None, B, L, W, GWp, C,
             int(scoring.match), int(scoring.mismatch),
             int(scoring.gap_open), int(scoring.gap_extend),
             int(config.free_start_s1), int(config.free_start_s2),
