@@ -73,22 +73,28 @@ Phases (every failed check raises, so the exit code is nonzero):
      commit's) with equal results, and prints a digest of the bridges;
   9. the per-task wavefront forward (wavefront_batch_corridor) at the
      shapes of scripts/wavefront_microbench.py (8 tasks of 2,048 rows, W =
-     512 and 1024, drift 0 and 4 per 16 rows): bit-equal to its plain
-     version, (score, end_i, end_j) equal to the wave route's; us per DP
-     row beside the wave forward's;
- 10. long-read-only assembly: make_miniasm_string_graph with no short-read
-     graph on a 2 Mbp + 100 kbp genome (both circular) with reads at 15x
-     (ASSEMBLY_CHROMOSOME, ASSEMBLY_DEPTH: the slice's 5 Mbp at 20x cut to
-     the time limit): all-vs-all overlaps, OLC string graph, unitigs, up
-     to 5 polish rounds on the card; checks that every polish CIGAR
-     re-tallies, that the unitigs (cut into 10 kb pieces and aligned by
-     align_reads_to_refs) align to the truth at >= 99% identity over
+     512 and 1024, drift 0 and 4 per 16 rows), at W = 4096 and 16384 (8
+     tasks of 256 rows) and on 160 tasks of 1,024 rows at W = 1024:
+     bit-equal to its plain version, up to W 2048 (score, end_i, end_j)
+     equal to the wave route's; us per DP row beside the wave forward's,
+     us per group of 32 wavefronts;
+ 10. long-read-only assembly through the command line (pipeline.main.main,
+     as `python -m unicycler_tpu_torch -l reads.fastq -o out` runs it) on
+     a 2 Mbp + 100 kbp genome (both circular) with reads at 15x written
+     to a FASTQ (ASSEMBLY_CHROMOSOME, ASSEMBLY_DEPTH: the slice's 5 Mbp
+     at 20x cut to the time limit): all-vs-all overlaps, OLC string
+     graph, unitigs, up to 5 polish rounds on the card, rotation of the
+     circular replicons (the host start-gene search), assembly.gfa and
+     assembly.fasta; checks that every polish CIGAR re-tallies, that
+     assembly.fasta (cut into 10 kb pieces and aligned by
+     align_reads_to_refs) aligns to the truth at >= 99% identity over
      >= 90% of the genome, every piece aligned and at most 10% of them
-     under 99%, and that the best polish round's mapping
-     quality is above round 0's (polish_unitigs keeps the best round);
-     lists the pieces under 99%, the wave launches with their tracks and
-     each kernel's device time beside its bound, and saves the unitigs to
-     chiprun_out/assembly.gfa;
+     under 99%, that the best polish round's mapping quality is above
+     round 0's (polish_unitigs keeps the best round), and that each
+     circular replicon was rotated as rotation.find_start_gene /
+     canonical_rotation say; lists the pieces under 99%, the rotation
+     span, the wave launches with their tracks and each kernel's device
+     time beside its bound; the outputs stay in chiprun_out/cli/;
   8. summary (printed last): one {"kernels": [...]} line with all seven
      kernels, then the card's line.
 
@@ -1557,21 +1563,18 @@ def phase_bridging(args, dev, report, workload=None):
 
 
 def microbench_tasks(n, W, drift, B=8, seed=0):
-    """The tasks of scripts/wavefront_microbench.py: B reads of n bases
-    planted at 90% identity W/2 diagonals into their references, with
-    per-row band starts c[i] = i + drift * i // 16. Returns (q, r, c_rows,
-    n_acts, m_acts) and the same tasks as BandedTasks whose anchors make
-    build_corridor give exactly c_rows."""
+    """The tasks of scripts/wavefront_microbench.py
+    (tools/wavefront_ab.microbench_tasks: B reads of n bases planted at
+    90% identity W/2 diagonals into their references, per-row band starts
+    c[i] = i + drift * i // 16). Returns (q, r, c_rows, n_acts, m_acts)
+    and the same tasks as BandedTasks whose anchors make build_corridor
+    give exactly c_rows."""
     import numpy as np
     from unicycler_tpu_torch.ops import banded as bo
-    rng = np.random.RandomState(seed)
-    m = n + W + (drift * n) // 16 + 16
-    q = rng.randint(0, 4, (B, n)).astype(np.int8)
-    r = rng.randint(0, 4, (B, m)).astype(np.int8)
-    r[:, W // 2:W // 2 + n] = np.where(rng.rand(B, n) < 0.9, q,
-                                       r[:, W // 2:W // 2 + n])
+    from unicycler_tpu_torch.tools.wavefront_ab import microbench_tasks as mt
+    q, r, c_rows, n_acts, m_acts = mt(n, W, drift, B, seed)
+    m = int(m_acts[0])
     rows = np.arange(n + 1, dtype=np.int64)
-    c_rows = [rows + (drift * rows) // 16 for _ in range(B)]
     tasks = [bo.BandedTask(q[b], r[b], rows.astype(np.int32),
                            (c_rows[b] + W // 2).astype(np.int32))
              for b in range(B)]
@@ -1579,13 +1582,13 @@ def microbench_tasks(n, W, drift, B=8, seed=0):
         if not np.array_equal(bo.build_corridor(
                 t.corridor_read, t.corridor_ref, n, m, W), c):
             raise AssertionError('corridor anchors do not rebuild c_rows')
-    return (q, r, c_rows, np.full(B, n, np.int32), np.full(B, m, np.int32),
-            tasks)
+    return q, r, c_rows, n_acts, m_acts, tasks
 
 
 def phase_wavefront(dev, results, report):
     """Kernel 7, the per-task wavefront forward, at the shapes of
-    scripts/wavefront_microbench.py: against its plain version, and its
+    scripts/wavefront_microbench.py, at two wide bands (short tasks) and
+    on 160 tasks: against its plain version, and up to W 2048 its
     (score, end_i, end_j) against the wave route (kernels 1-2)."""
     import torch
     from unicycler_tpu_torch.ops import banded as bo
@@ -1595,13 +1598,16 @@ def phase_wavefront(dev, results, report):
 
     log('== phase 9: per-task wavefront forward (wavefront_batch_corridor)')
     scoring = Scoring(3, -6, -5, -2)
-    n = 2048
     launches = 0
     entry_ms = 0.0
     rows = []
-    for W, drift in ((512, 0), (512, 4), (1024, 0), (1024, 4)):
-        q, r, c_rows, n_acts, m_acts, tasks = microbench_tasks(n, W, drift)
-        B = len(tasks)
+    # (W, drift a 16 rows, rows a task, tasks)
+    for W, drift, n, B in ((512, 0, 2048, 8), (512, 4, 2048, 8),
+                           (1024, 0, 2048, 8), (1024, 4, 2048, 8),
+                           (4096, 4, 256, 8), (16384, 4, 256, 8),
+                           (1024, 4, 1024, 160)):
+        q, r, c_rows, n_acts, m_acts, tasks = microbench_tasks(n, W, drift,
+                                                               B)
         par, db, zq, zr, a_lo, n_groups, Wcap, GWp, _ = wf._prepare(
             q, r, c_rows, n_acts, m_acts, W)
         args = [torch.from_numpy(x).to(dev) for x in (par, db, zq, zr)]
@@ -1615,16 +1621,19 @@ def phase_wavefront(dev, results, report):
         err = max(exact('wavefront_fwd ' + nm, a, b) for nm, a, b in
                   zip(('hatn', 'lcv', 'lci'), out_k, out_p))
         # the cells the function needs: W band cells a row. The kernel
-        # computes about twice as many lanes (n_groups * G * W a task),
-        # the odd-parity half of which is a shadow DP never read.
+        # computes one cell a lane pair and wavefront (the real-parity
+        # lanes) over windows 4/3 as wide as the lanes a warp owns.
         cells = int(n_acts.sum(dtype='int64')) * W
         nbytes = sum(x.numel() * x.element_size() for x in args + list(out_k))
         results.append({'name': 'wavefront_fwd', 'W': W, 'bt': B,
-                        'drift': drift, 'ms': ms, 'plain_ms': plain_ms,
+                        'drift': drift, 'rows': n, 'groups': n_groups,
+                        'plan': list(wf.launch_plan(B, W)), 'ms': ms,
+                        'plain_ms': plain_ms,
                         'bound_ms': bound_ms(nbytes,
                                              cells * OPS_PER_CELL_WAVEFRONT),
                         'bytes': nbytes, 'cells': cells,
-                        'max_abs_err': err})
+                        'max_abs_err': err,
+                        'summary': (W, drift, B) == (1024, 0, 8)})
 
         # the entry, counted as this kernel's path, then the wave route
         cuda_lib.reset_launches()
@@ -1635,6 +1644,19 @@ def phase_wavefront(dev, results, report):
         launches += cuda_lib.LAUNCHES['wavefront_fwd']
         entry_ms += sum(e0.elapsed_time(e1) for _, e0, e1, _ in
                         cuda_lib.TIMINGS)
+        cuda_lib.TIMINGS = None
+        row = {'W': W, 'drift': drift, 'tasks': B, 'rows': n,
+               'groups': n_groups, 'ms': ms, 'us_per_row': 1e3 * ms / n,
+               'us_per_group': 1e3 * ms / n_groups}
+        if W > 2048:
+            # the wave route takes W <= 2048; wider bands take the row
+            # route, whose per-row band differs from the kernel's windows
+            rows.append(row)
+            log('W=%5d drift %d/16 B=%d n=%d  wavefront %.3f ms = %.3f us a '
+                'group of %d (plain %.0f ms)  bit-equal'
+                % (W, drift, B, n, ms, 1e3 * ms / n_groups, n_groups,
+                   plain_ms))
+            continue
         cuda_lib.TIMINGS = []
         route, ctr = retry_counters(lambda: bo.align_banded_tape(
             tasks, scoring, SEMI_GLOBAL, W, True, device=dev))
@@ -1659,12 +1681,10 @@ def phase_wavefront(dev, results, report):
                     '%d)' % (b, score[b], ei[b], ej[b], pa.score, pa.s1_end,
                              pa.s2_end))
             compared += 1
-        rows.append({'W': W, 'drift': drift, 'ms': ms,
-                     'us_per_row': 1e3 * ms / n,
-                     'wave_fwd_ms': wave_ms,
-                     'wave_us_per_row': 1e3 * wave_ms / n,
-                     'compared': compared})
-        log('W=%4d drift %d/16 B=%d n=%d  wavefront %.3f ms = %.3f us/row '
+        row.update(wave_fwd_ms=wave_ms, wave_us_per_row=1e3 * wave_ms / n,
+                   compared=compared)
+        rows.append(row)
+        log('W=%5d drift %d/16 B=%d n=%d  wavefront %.3f ms = %.3f us/row '
             '(plain %.0f ms)  bit-equal; wave forward %.3f ms = %.3f us/row; '
             '%d/%d ends equal to the wave route'
             % (W, drift, B, n, ms, 1e3 * ms / n, plain_ms, wave_ms,
@@ -1689,21 +1709,20 @@ def assembly_workload(seed, genome=5_000_000, plasmid=100_000, depth=20.0):
     return reps, synth.simulate_read_set(rng, reps, depth)
 
 
-def identity_to_truth(graph, reps, dev, chunk=10000):
-    """Cut the unitigs into `chunk`-bp pieces, align them to the truth
-    replicons (each extended by `chunk` bases across its origin) with
-    align_reads_to_refs, and return (identity of the pieces' best
-    alignments, weighted by piece length; fraction of the genome those
-    alignments cover; the pieces under 99% identity, as (piece, identity,
-    replicon, start, end of its alignment on the truth); pieces; pieces
-    aligned)."""
+def identity_to_truth(seqs, reps, dev, chunk=10000):
+    """Cut the assembled sequences ((name, sequence) pairs) into
+    `chunk`-bp pieces, align them to the truth replicons (each extended by
+    `chunk` bases across its origin) with align_reads_to_refs, and return
+    (identity of the pieces' best alignments, weighted by piece length;
+    fraction of the genome those alignments cover; the pieces under 99%
+    identity, as (piece, identity, replicon, start, end of its alignment
+    on the truth); pieces; pieces aligned)."""
     import numpy as np
     from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
     from unicycler_tpu_torch.align.semi_global import align_reads_to_refs
     from unicycler_tpu_torch.io.fastx import Read, Reference
     pieces = []
-    for name, seg in sorted(graph.segments.items()):
-        seq = seg.forward_sequence
+    for name, seq in sorted(seqs):
         for k in range(0, len(seq), chunk):
             if len(seq) - k >= 1000:
                 pieces.append(Read('%s_%d' % (name, k), seq[k:k + chunk],
@@ -1731,33 +1750,67 @@ def identity_to_truth(graph, reps, dev, chunk=10000):
             / sum(len(s) for s in reps), low, len(pieces), aligned)
 
 
+def write_fastq(path, sim, qual=','):
+    """The simulated reads as FASTQ, every base at one quality (',' is
+    Q11, about the simulator's 8% error)."""
+    with open(path, 'w') as f:
+        for name, seq, _ in sim:
+            f.write('@%s\n%s\n+\n%s\n' % (name, seq, qual * len(seq)))
+
+
+def expected_rotation(seq, args_ns):
+    """The sequence rotate_completed_replicons should make of a circular
+    replicon `seq`: at its best start gene (rotation.find_start_gene on
+    the bundled genes), else at rotation.canonical_rotation; and which."""
+    from unicycler_tpu_torch.graph.string_graph import StringGraphSegment
+    from unicycler_tpu_torch.pipeline import rotation
+    try:
+        hit = rotation.find_start_gene(seq, rotation.BUNDLED_START_GENES,
+                                       args_ns.start_gene_id,
+                                       args_ns.start_gene_cov)
+        start, flip, how = hit.start_pos, hit.flip, hit.qseqid
+    except rotation.CannotFindStart:
+        start, flip = rotation.canonical_rotation(seq)
+        how = 'canonical'
+    seg = StringGraphSegment('x', seq)
+    seg.rotate_sequence(start, flip)
+    return seg.forward_sequence, how
+
+
 def phase_assembly(args, dev, report, workload=None):
-    """The slice: long-read-only assembly (make_miniasm_string_graph with
-    no short-read graph) on the card; checks every polish CIGAR, the
-    polished unitigs against the truth and the polish quality."""
+    """The slice: a long-read-only run of the command line
+    (pipeline.main.main: make_miniasm_string_graph with no short-read
+    graph, rotation, assembly.gfa / assembly.fasta) on the card; checks
+    every polish CIGAR, assembly.fasta against the truth, the polish
+    quality and each circular replicon's rotation."""
     import torch
-    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
-    from unicycler_tpu_torch.asm import hybrid, polish
-    from unicycler_tpu_torch.io.fastx import Read
+    from unicycler_tpu_torch.asm import polish
+    from unicycler_tpu_torch.io.fastx import load_fasta
     from unicycler_tpu_torch.ops import banded, cuda_lib
+    from unicycler_tpu_torch.pipeline import main as cli
     from unicycler_tpu_torch.utils import trace
 
-    log('== phase 10: long-read-only assembly (make_miniasm_string_graph '
-        'on %s)' % dev)
+    log('== phase 10: long-read-only assembly (python -m unicycler_tpu_torch '
+        '-l reads.fastq on %s)' % dev)
     t0 = time.time()
     reps, sim = workload or assembly_workload(
         args.seed + 3, genome=ASSEMBLY_CHROMOSOME, depth=ASSEMBLY_DEPTH)
-    read_dict = {n: Read(n, s, None) for n, s, _ in sim}
+    out_dir = os.path.join(os.path.dirname(args.out), 'cli')
+    os.makedirs(out_dir, exist_ok=True)
+    reads_fq = os.path.join(out_dir, 'reads.fastq')
+    write_fastq(reads_fq, sim)
     total = sum(len(s) for _, s, _ in sim)
     log('genome %s bp (circular), %d reads, %d bp (%.1fx; set-up %.1f s)'
         % ('+'.join(str(len(s)) for s in reps), len(sim), total,
            total / sum(len(s) for s in reps), time.time() - t0))
 
-    # observe every polish alignment (re-tallied at once, not kept) and
-    # every round's mapping quality
+    # observe every polish alignment (re-tallied at once, not kept), every
+    # round's mapping quality and the replicons before rotation
     tally = {'checked': 0, 'bad': 0}
     qualities = []
+    before_rotation = {}
     inner_align, inner_round = banded.align_banded, polish.polish_round
+    inner_rotate = cli.rotate_completed_replicons
 
     def observed_align(tasks, scoring, config=None, band=25,
                        need_cigar=True, device=None):
@@ -1774,20 +1827,29 @@ def phase_assembly(args, dev, report, workload=None):
         qualities.append(out[1])
         return out
 
+    def observed_rotate(graph, cli_args, counter):
+        for name in graph.completed_circular_replicons():
+            before_rotation[name] = graph.segments[name].forward_sequence
+        report['cli_args'] = {k: v for k, v in vars(cli_args).items()
+                              if k.startswith('start_gene')}
+        return inner_rotate(graph, cli_args, counter)
+
+    argv = ['-l', reads_fq, '-o', out_dir, '--verbosity', '0']
     trace.reset()
     trace.enable()
     cuda_lib.TIMINGS = []
     banded.align_banded, polish.polish_round = observed_align, observed_round
+    cli.rotate_completed_replicons = observed_rotate
     sync(dev)
     cuda_lib.reset_launches()
     t0 = time.time()
     try:
-        graph = hybrid.make_miniasm_string_graph(
-            None, read_dict, None, AlignmentScoringScheme('3,-6,-5,-2'),
-            None, None, None, [], device=dev)
+        graph = cli.main(argv, device=dev)
         sync(dev)
     finally:
         banded.align_banded, polish.polish_round = inner_align, inner_round
+        cli.rotate_completed_replicons = inner_rotate
+        os.remove(reads_fq)
     wall = time.time() - t0
     launches = dict(cuda_lib.LAUNCHES)
     timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
@@ -1795,11 +1857,11 @@ def phase_assembly(args, dev, report, workload=None):
     counters = trace.as_dict()['counters']
     spans = trace.as_dict()['spans']
     per_kernel = kernel_costs(timings)
-    if graph is None:
-        raise AssertionError('the assembler left no segment')
+    fasta = load_fasta(os.path.join(out_dir, 'assembly.fasta'))
+    if not fasta:
+        raise AssertionError('the command line wrote no sequence')
 
-    lens = sorted((s.get_length() for s in graph.segments.values()),
-                  reverse=True)
+    lens = sorted((len(s) for _, s in fasta), reverse=True)
     acc, n50 = 0, 0
     for length in lens:
         acc += length
@@ -1809,15 +1871,25 @@ def phase_assembly(args, dev, report, workload=None):
     circular = sum(graph.segment_is_circular(n) for n in graph.segments)
     t1 = time.time()
     ident, covered, low, n_pieces, n_aligned = identity_to_truth(
-        graph, reps, dev)
-    gfa = os.path.join(os.path.dirname(args.out), 'assembly.gfa')
-    os.makedirs(os.path.dirname(gfa), exist_ok=True)
-    graph.save_to_gfa(gfa, verbosity=3)
+        fasta, reps, dev)
     check_s = time.time() - t1
+    # each circular replicon as rotation.py says: at its start gene, else
+    # at its canonical rotation (the search run again on the sequence the
+    # command line had before it rotated)
+    t1 = time.time()
+    rotations = []
+    ns = argparse.Namespace(**report.get('cli_args', {}))
+    for name, seq in sorted(before_rotation.items()):
+        want, how = expected_rotation(seq, ns)
+        got = graph.segments[name].forward_sequence
+        rotations.append({'segment': name, 'length': len(seq), 'how': how,
+                          'ok': got == want})
+    rotation_check_s = time.time() - t1
     best = max(range(len(qualities)), key=lambda k: qualities[k])
     busy = sum(a['ms'] for a in per_kernel.values())
-    log('assembly: %.2f s wall; %d unitigs (%d circular), %d bp, N50 %d, '
-        'longest %s' % (wall, len(lens), circular, sum(lens), n50, lens[:3]))
+    log('assembly (command line): %.2f s wall; %d sequences (%d circular), '
+        '%d bp, N50 %d, longest %s' % (wall, len(lens), circular, sum(lens),
+                                       n50, lens[:3]))
     log('spans (s): %s' % json.dumps(
         {k: v['seconds'] for k, v in spans.items()
          if k.count('/') <= 1}))
@@ -1834,17 +1906,21 @@ def phase_assembly(args, dev, report, workload=None):
         're-tallied, %d off their score'
         % (['%.2f' % x for x in qualities], best, tally['checked'],
            tally['bad']))
-    log('truth: %d pieces of 10 kb, %d aligned, identity %.3f%%, covering '
-        '%.2f%% of the genome (%.1f s); pieces under 99%% (piece, identity, '
-        'replicon, start, end): %s; unitigs saved to %s'
+    log('rotation: %.2f s (span); %s; checked in %.1f s'
+        % (spans.get('rotation', {}).get('seconds', float('nan')),
+           json.dumps(rotations), rotation_check_s))
+    log('truth: %d pieces of 10 kb of assembly.fasta, %d aligned, identity '
+        '%.3f%%, covering %.2f%% of the genome (%.1f s); pieces under 99%% '
+        '(piece, identity, replicon, start, end): %s; assembly.gfa and '
+        'assembly.fasta in %s'
         % (n_pieces, n_aligned, ident, 100 * covered, check_s,
-           json.dumps(low), gfa))
+           json.dumps(low), out_dir))
     report['assembly'] = {
         'wall_s': wall, 'reads': len(sim), 'read_bases': total,
         'genome': [len(s) for s in reps], 'unitigs': lens,
         'circular': circular, 'n50': n50, 'qualities': qualities,
         'retallied': tally['checked'], 'tally_bad': tally['bad'],
-        'identity': ident, 'low_pieces': low,
+        'identity': ident, 'low_pieces': low, 'rotations': rotations,
         'covered': covered, 'launches': launches, 'wave_tracks': tracks,
         'per_kernel': per_kernel, 'counters': counters, 'spans': spans}
     if tally['bad']:
@@ -1868,6 +1944,14 @@ def phase_assembly(args, dev, report, workload=None):
                              'round 0 (%.2f)' % qualities[0])
     if launches['wavetape_fwd'] <= 0 or launches['wavetape_walk'] <= 0:
         raise AssertionError('polish did not go through the wave kernels')
+    if not circular or len(rotations) != circular:
+        raise AssertionError('%d circular replicons, %d seen by the rotation'
+                             % (circular, len(rotations)))
+    if not all(r['ok'] for r in rotations):
+        raise AssertionError('replicons not rotated as rotation.py says: %s'
+                             % json.dumps(rotations))
+    if 'rotation' not in spans:
+        raise AssertionError('the rotation left no trace span')
     return launches, per_kernel
 
 
@@ -1893,20 +1977,36 @@ def main():
     import numpy as np
     assert 'jax' not in sys.modules
 
-    name, smi_line = phase_device()
+    t0 = time.time()
+    phase_s = {}
+
+    def timed_phase(label, fn, *a):
+        t = time.time()
+        out = fn(*a)
+        phase_s[label] = round(time.time() - t, 1)
+        return out
+
+    name, smi_line = timed_phase('1 device', phase_device)
     dev = torch.device('cuda', 0)
-    report = {'device': name, 'nvidia_smi': smi_line}
-    report['build_s'], report['occupancy'] = phase_build()
+    report = {'device': name, 'nvidia_smi': smi_line, 'phase_s': phase_s}
+    report['build_s'], report['occupancy'] = timed_phase('2 build',
+                                                         phase_build)
     kres = []
-    phase_kernels(np.random.default_rng(args.seed), dev, kres, report)
-    launches, per_kernel = phase_slice(args, dev, report)
-    phase_small_reference(dev)
-    retry_launches = phase_retry(args, dev, kres, report)
-    phase_tape_kernels(np.random.default_rng(args.seed + 2), dev, kres,
-                       report)
-    bridge_launches, bridge_kernels = phase_bridging(args, dev, report)
-    wavefront_launches, wavefront_ms = phase_wavefront(dev, kres, report)
-    asm_launches, asm_kernels = phase_assembly(args, dev, report)
+    timed_phase('3 kernels', phase_kernels, np.random.default_rng(args.seed),
+                dev, kres, report)
+    launches, per_kernel = timed_phase('4 slice', phase_slice, args, dev,
+                                       report)
+    timed_phase('4b small reference', phase_small_reference, dev)
+    retry_launches = timed_phase('5 retry', phase_retry, args, dev, kres,
+                                 report)
+    timed_phase('6 row kernels', phase_tape_kernels,
+                np.random.default_rng(args.seed + 2), dev, kres, report)
+    bridge_launches, bridge_kernels = timed_phase(
+        '7 bridging', phase_bridging, args, dev, report)
+    wavefront_launches, wavefront_ms = timed_phase(
+        '9 wavefront', phase_wavefront, dev, kres, report)
+    asm_launches, asm_kernels = timed_phase('10 assembly', phase_assembly,
+                                            args, dev, report)
     assert 'jax' not in sys.modules
 
     sources = {'wavetape_fwd': ('unicycler_tpu_torch/csrc/wavetape_fwd.cu',
@@ -1980,6 +2080,8 @@ def main():
     with open(args.out, 'w') as f:
         json.dump(report, f, indent=1)
     log('== phase 8: summary')
+    log('phase seconds: %s; %.0f s in all' % (json.dumps(phase_s),
+                                             time.time() - t0))
     log(json.dumps({'kernels': kernels}))
     log(smi_line)
     print(json.dumps({'ok': True, 'device': {

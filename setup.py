@@ -8,7 +8,9 @@ host-side helper is native).
 
 unicycler_tpu_torch, the PyTorch/CUDA port, ships its CUDA sources
 (csrc/*.cu) and host C++ (native/*.cpp) the same way: nvcc and g++ build
-them at first use.
+them at first use. Its command line is the unicycler_tpu_torch console
+script (python -m unicycler_tpu_torch), with its own copy of the start
+genes (gene_data/).
 """
 
 from setuptools import find_packages, setup
@@ -19,11 +21,14 @@ setup(
     description='TPU-native hybrid bacterial genome assembly framework',
     packages=find_packages(exclude=['tests']),
     package_data={'unicycler_tpu': ['native/*.cpp'],
-                  'unicycler_tpu_torch': ['csrc/*.cu', 'native/*.cpp']},
+                  'unicycler_tpu_torch': ['csrc/*.cu', 'native/*.cpp',
+                                          'gene_data/*.fasta',
+                                          'gene_data/README.md']},
     python_requires='>=3.10',
     install_requires=['numpy', 'jax'],
     entry_points={
         'console_scripts':
-            ['unicycler_tpu = unicycler_tpu.pipeline.main:main'],
+            ['unicycler_tpu = unicycler_tpu.pipeline.main:main',
+             'unicycler_tpu_torch = unicycler_tpu_torch.pipeline.main:main'],
     },
 )

@@ -459,17 +459,10 @@ def test_gpu_banded_walk_bit_equal_to_plain(cfg, W):
     assert int((got[0] != 0).sum()) > 1000
 
 
-@pytest.mark.parametrize('W', [128, 512, 1024])
-@pytest.mark.parametrize('cfg', sorted(CONFIGS))
-def test_gpu_wavefront_bit_equal_to_plain(cfg, W):
-    """The per-task wavefront forward against its plain version on
-    drifting corridors; the entry's ends on the card equal the CPU's."""
-    dev = _cuda()
+def _wavefront_inputs(W, sizes, dev):
     from unicycler_tpu_torch.ops import banded as bo
     from unicycler_tpu_torch.ops import wavefront as wf
-    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
-    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
-    tasks = tasks_np(31, [300, 900, 640, 1200, 150], drift=True)
+    tasks = tasks_np(31, sizes, drift=True)
     n_acts = np.array([len(t[0]) for t in tasks], np.int32)
     m_acts = np.array([len(t[1]) for t in tasks], np.int32)
     q = np.zeros((len(tasks), n_acts.max()), np.int8)
@@ -481,17 +474,57 @@ def test_gpu_wavefront_bit_equal_to_plain(cfg, W):
         c_rows.append(bo.build_corridor(cr, cf, len(tq), len(tr), W))
     staged = wf._prepare(q, r, c_rows, n_acts, m_acts, W)
     args = [torch.from_numpy(x).to(dev) for x in staged[:4]]
-    kw = dict(W=W, Wcap=staged[6], a_lo=staged[4], scoring=scoring,
-              config=config)
-    for g, w in zip(wf.wavefront_forward_cuda(*args, **kw),
-                    wf.wavefront_forward_plain(*args, **kw)):
+    return (q, r, c_rows, n_acts, m_acts), args, dict(W=W, Wcap=staged[6],
+                                                      a_lo=staged[4])
+
+
+@pytest.mark.parametrize('W', [128, 512, 1024, 2048, 4096, 16384])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_wavefront_bit_equal_to_plain(cfg, W):
+    """The per-task wavefront forward against its plain version on
+    drifting corridors (short tasks at the wide bands); the entry's ends
+    on the card equal the CPU's up to W 4096."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import wavefront as wf
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    scoring, config = Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg])
+    sizes = [300, 900, 640, 1200, 150] if W <= 2048 else [200, 260, 150]
+    host, args, kw = _wavefront_inputs(W, sizes, dev)
+    kw.update(scoring=scoring, config=config)
+    got = wf.wavefront_forward_cuda(*args, **kw)
+    for g, w in zip(got, wf.wavefront_forward_plain(*args, **kw)):
         assert torch.equal(g, w)
-    got = wf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts,
-                                      scoring, config, W, device=dev)
-    want = wf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts,
-                                       scoring, config, W, device='cpu')
+    assert int((got[0] > wf.NEG).sum()) > 0
+    if W <= 4096:
+        got = wf.wavefront_batch_corridor(*host, scoring, config, W,
+                                          device=dev)
+        want = wf.wavefront_batch_corridor(*host, scoring, config, W,
+                                           device='cpu')
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize('plan', [(1, 11, 1, False), (2, 6, 1, False),
+                                  (4, 3, 1, False), (8, 2, 1, False),
+                                  (1, 2, 6, False), (2, 3, 2, True),
+                                  (1, 1, 11, True)],
+                         ids=lambda p: 'C%d_NW%d_L%d%s' % (p[0], p[1], p[2],
+                                                          '_global' * p[3]))
+def test_gpu_wavefront_launch_shapes(plan):
+    """Every launch shape of kernel 7 (cluster size, warps a block,
+    segments a warp, carries in shared or global memory) gives the plain
+    version's outputs at W 2048."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import wavefront as wf
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    kw = dict(scoring=Scoring(*SCORING_T),
+              config=AlignConfig(*CONFIGS['semi']))
+    _, args, shape = _wavefront_inputs(2048, [700, 1300, 400], dev)
+    kw.update(shape)
+    want = wf.wavefront_forward_plain(*args, **kw)
+    got = wf.wavefront_forward_cuda(*args, plan=plan, **kw)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize('band', [40, 200])
@@ -546,3 +579,29 @@ def test_gpu_align_banded_retries_walk_on_the_card(band, monkeypatch):
     for t, pa in zip(tasks, got):
         if pa.cigar:
             assert retally(t.q, t.r, pa) == pa.score
+
+
+def test_gpu_cli_matches_cpu_route(tmp_path):
+    """The command line (pipeline.main.main, a long-read-only run) on the
+    card writes the same assembly.gfa and assembly.fasta as on the CPU
+    route, on the 12 kbp genome of tests/test_torch_pipeline.py (reads of
+    5,000 bp every 300 bp, alternate strands)."""
+    dev = _cuda()
+    from unicycler_tpu_torch.misc import reverse_complement
+    from unicycler_tpu_torch.pipeline.main import main
+    rng = random.Random(77)
+    genome = ''.join(rng.choice('ACGT') for _ in range(12000))
+    ext = genome + genome[:5000]
+    reads = tmp_path / 'long.fastq'
+    with open(reads, 'w') as f:
+        for k, i in enumerate(range(0, len(genome), 300), 1):
+            seq = ext[i:i + 5000]
+            seq = reverse_complement(seq) if k % 2 == 0 else seq
+            f.write('@fake_long_%d\n%s\n+\n%s\n' % (k, seq, 'I' * len(seq)))
+    argv = ['-l', str(reads), '--verbosity', '0', '--keep', '0']
+    main(argv + ['-o', str(tmp_path / 'gpu')], device=dev)
+    main(argv + ['-o', str(tmp_path / 'cpu')], device='cpu')
+    for name in ('assembly.gfa', 'assembly.fasta'):
+        got = (tmp_path / 'gpu' / name).read_bytes()
+        assert got == (tmp_path / 'cpu' / name).read_bytes(), name
+        assert len(got) > 10000

@@ -1,7 +1,8 @@
 """unicycler_tpu_torch stands alone and keeps its device contract.
 
-(a) Importing every module of the port (and chip_smoke.py) loads neither
-jax nor any unicycler_tpu module. (f) Entry points with no device ask for
+(a) Importing every module of the port (the command line's pipeline/
+modules and __main__ among them, and chip_smoke.py) loads neither jax nor
+any unicycler_tpu module. (f) Entry points with no device ask for
 CUDA and raise on a host without it; a kernel wrapper given CPU tensors
 runs its plain version and launches nothing.
 """
@@ -33,6 +34,7 @@ bad = [m for m in sys.modules
        if m == 'unicycler_tpu' or m.startswith('unicycler_tpu.')]
 assert not bad, bad
 print(len(names))
+print(' '.join(names))
 '''
 
 
@@ -41,7 +43,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL % REPO],
                          cwd=REPO, env=env, capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    count, names = out.stdout.strip().split('\n')
+    assert int(count) >= 20
+    for name in ('__main__', 'version', 'pipeline.main', 'pipeline.rotation',
+                 'pipeline.protein_search'):
+        assert 'unicycler_tpu_torch.' + name in names.split(), name
 
 
 def _job():
@@ -61,8 +67,8 @@ def _job():
                                    'create_long_read_bridges',
                                    'make_miniasm_string_graph',
                                    'polish_unitigs',
-                                   'wavefront_batch_corridor'])
-def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+                                   'wavefront_batch_corridor', 'main'])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
     from unicycler_tpu_torch.align import semi_global
@@ -101,6 +107,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
                 '1', job.references[0].sequence)
             polish.polish_unitigs(graph, job.reads, job.scoring_scheme,
                                   hybrid=False)
+        elif entry == 'main':
+            from unicycler_tpu_torch.pipeline import main
+            reads = tmp_path / 'reads.fq'
+            reads.write_text('@r\nACGT\n+\nIIII\n')
+            main.main(['-l', str(reads), '-o', str(tmp_path / 'out')])
         elif entry == 'wavefront_batch_corridor':
             q, r, _, _ = tasks_np(1, [50], False)[0]
             wavefront.wavefront_batch(q[None], r[None], [-60], [len(q)],

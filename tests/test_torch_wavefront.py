@@ -6,7 +6,10 @@ equals the Pallas kernel run in interpret mode on the same staged inputs:
 hatn, lcv and lci, exactly. wavefront_batch and wavefront_batch_corridor
 with device='cpu' equal the JAX package's interpret-mode entries on the
 straight and drifting corridors of tests/test_wavefront.py, for
-SEMI_GLOBAL and FULLY_GLOBAL; the drift precondition raises in both.
+SEMI_GLOBAL and FULLY_GLOBAL, and on short tasks at W 2560 and 4096; the
+drift precondition raises in both. wavefront_forward_pairs (the card
+kernel's algorithm: real-parity lanes only, segments with halos, the
+per-task stop) equals wavefront_forward_plain in all six configs.
 """
 
 import numpy as np
@@ -87,3 +90,46 @@ def test_drift_precondition_raises():
     with pytest.raises(ValueError, match='drift too large'):
         twf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts, ts, tc,
                                      W=W, device='cpu')
+
+
+@pytest.mark.parametrize('W', [2560, 4096])
+def test_wide_short_task_matches_jax(W):
+    """Bands wider than 2048 (which the card's kernel once refused) on
+    short drifting tasks (n ~ 200): the entry equals the JAX package's."""
+    (js, jc), (ts, tc) = _both('semi')
+    q, r, c_rows, n_acts, m_acts = _drifty_tasks(np.random.RandomState(41),
+                                                 2, 220, 900, W)
+    want = jwf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts, js, jc,
+                                        W=W, interpret=True)
+    got = twf.wavefront_batch_corridor(q, r, c_rows, n_acts, m_acts, ts, tc,
+                                       W=W, device='cpu')
+    for name, w, g in zip(('score', 'end_i', 'end_j'), want, got):
+        np.testing.assert_array_equal(w, g, err_msg=name)
+    assert (got[0] > tpw.NEG // 2).all()
+
+
+@pytest.mark.parametrize('W,seg', [(128, twf.SEG), (256, 20), (256, 7),
+                                   (2560, twf.SEG)])
+@pytest.mark.parametrize('cfg', ['SEMI_GLOBAL', 'FULLY_GLOBAL', 'PATH_CONFIG',
+                                 'OVERLAP_CONFIG', 'START_CONFIG',
+                                 'END_CONFIG'])
+def test_pairs_version_matches_plain(cfg, W, seg):
+    """The card kernel's algorithm in plain PyTorch (real-parity lanes
+    only, segments of `seg` owned pairs with halos, carries exchanged once
+    a group, each task stopped after its wavefront n + m) gives
+    wavefront_forward_plain's outputs exactly, on drifting corridors with
+    odd and even advances and tasks of different lengths."""
+    q, r, c_rows, n_acts, m_acts = _drifty_tasks(np.random.RandomState(23),
+                                                 4, 120, 300, W)
+    par, db, zq, zr, a_lo, n_groups, Wcap, GWp, _ = twf._prepare(
+        q, r, c_rows, n_acts, m_acts, W)
+    assert (db[:, :, 1] % 2 == 1).any()              # odd advances
+    args = [torch.from_numpy(x) for x in (par, db, zq, zr)]
+    kw = dict(W=W, Wcap=Wcap, a_lo=a_lo, scoring=tpw.Scoring(*SCORING),
+              config=getattr(tpw, cfg))
+    want = twf.wavefront_forward_plain(*args, **kw)
+    got = twf.wavefront_forward_pairs(*args, seg=seg, **kw)
+    for name, w, g in zip(('hatn', 'lcv', 'lci'), want, got):
+        assert torch.equal(w, g), name
+    assert int((want[0] > tpw.NEG).sum()) > 0
+    assert int(twf.task_groups(args[0], n_groups, a_lo).min()) < n_groups

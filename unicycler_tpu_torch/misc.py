@@ -193,6 +193,11 @@ def strip_read_extensions(read_file_name):
     return '.'.join(parts)
 
 
+def gfa_path(out_dir, file_num, name):
+    """Numbered checkpoint GFA path (ref misc.py:986)."""
+    return os.path.join(out_dir, str(file_num).zfill(3) + '_' + name + '.gfa')
+
+
 def quit_with_error(message):
     """Fatal-error exit path (ref misc.py:106)."""
     raise SystemExit('Error: ' + message)

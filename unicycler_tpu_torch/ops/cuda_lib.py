@@ -152,10 +152,10 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _P],
     # moves, crow, end_i, end_j, records, fin, B, n_pad, W, stream
     'banded_walk_launch': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # par, db, zq, zr, hatn, lcv, lci, B, W, Wcap, GWp, n_groups, a_lo,
+    # par, db, zq, zr, hatn, lcv, lci, scratch, B, W, Wcap, GWp, n_groups,
+    # a_lo, cluster size, warps a block, segments a warp, global carries,
     # match, mismatch, open, ext, free_start_s1, free_start_s2, stream
-    'wavefront_fwd_launch': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    'wavefront_fwd_launch': [_P] * 8 + [_I] * 16 + [_P],
 }
 
 

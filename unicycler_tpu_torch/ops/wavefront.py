@@ -18,8 +18,11 @@ ops.banded._banded_single's tie rules.
 
 The host staging (_prepare, _group_windows, _base_planes) and the end
 selection are copies of the JAX package's. wavefront_forward launches
-csrc/wavefront_fwd.cu for tensors on a CUDA device and runs
-wavefront_forward_plain only for tensors on the CPU. No pipeline stage
+csrc/wavefront_fwd.cu (any W, at launch_plan's cluster shape) for tensors
+on a CUDA device and runs wavefront_forward_plain only for tensors on the
+CPU. wavefront_forward_pairs is the kernel's own algorithm in plain
+PyTorch (real lanes only, segments with halos, a per-task stop), which
+the CPU tests hold to wavefront_forward_plain. No pipeline stage
 calls this module: its entry is the ops API (wavefront_batch_corridor,
 wavefront_batch) that the JAX package's tests and microbenchmark call.
 """
@@ -225,9 +228,183 @@ def wavefront_forward_plain(par, db, zq, zr, W: int, Wcap: int, a_lo: int,
     return hatn.to(torch.int32), lcv.to(torch.int32), lci.to(torch.int32)
 
 
+# The kernel's layout (csrc/wavefront_fwd.cu). Only the lanes with
+# a - dbase_g - k even hold real cells at wavefront a, and a real lane
+# reads only real lanes (E from k - 1 and F from k + 1 at a - 1, the
+# diagonal from k at a - 2), so the kernel computes one cell per lane
+# PAIR (2p, 2p + 1) per wavefront, the pair's active lane alternating.
+# A warp holds WINDOW pairs, PAIRS a thread, and owns the SEG in the
+# middle: a step passes values one pair along, so the HALO pairs at each
+# edge absorb a group's G steps and the warps of a task exchange their
+# carries once a group, through a per-lane buffer, at the realign.
+PAIRS = 4                       # pairs a thread
+WINDOW = 32 * PAIRS             # pairs a warp computes
+HALO = G // 2                   # pairs each side of the owned ones
+SEG = WINDOW - 2 * HALO         # pairs a warp owns (a segment)
+CLUSTER_SIZES = (1, 2, 4, 8)
+WARPS_AIM = 4                   # warps a block the cluster size aims for
+MAX_WARPS = 16                  # warps a block at most
+SMEM_LIMIT = 232448             # bytes of shared memory a block may use
+SMS = 132
+
+
+def task_groups(par, n_groups: int, a_lo: int):
+    """Groups each task runs (B,) int64: through the one holding
+    wavefront n + m, its last cell with a value. Every capture with a
+    value is a cell (n, j <= m) or (i <= n, m), so later groups leave the
+    outputs as they are."""
+    nm = par[:, 0].to(torch.int64) + par[:, 1].to(torch.int64)
+    return ((nm - a_lo) // G + 1).clamp(0, n_groups)
+
+
+def launch_plan(B: int, W: int):
+    """(C, NW, L, global_state) of a launch of B tasks at band W: a
+    cluster of C blocks a task, NW warps a block, L segments a warp,
+    and whether the carries exchange through a global scratch instead
+    of the blocks' shared memory. C is the smallest cluster size with
+    at most WARPS_AIM warps a block, cut while B x C exceeds the card's
+    SMs (tasks then fill the card); NW covers the segments at C (at
+    most MAX_WARPS), and a warp loops over L segments beyond that. The
+    carries sit in shared memory (read across the cluster) while they
+    fit; csrc/wavefront_fwd.cu checks the same rule."""
+    nseg = -(-(W // 2) // SEG)
+    C = next((c for c in CLUSTER_SIZES if -(-nseg // c) <= WARPS_AIM),
+             CLUSTER_SIZES[-1])
+    while C > 1 and B * C > SMS:
+        C //= 2
+    NW = min(MAX_WARPS, -(-nseg // C))
+    L = -(-nseg // (C * NW))
+    return C, NW, L, smem_bytes(NW, L, False) > SMEM_LIMIT
+
+
+def smem_bytes(NW: int, L: int, global_state: bool):
+    """Shared memory of a block: each warp's two staged base windows (q
+    and r planes), and unless the carries go through global memory, two
+    buffers of (H, E, F) for the block's NW x L segments of 2 SEG lanes."""
+    stage = NW * 2 * 2 * (2 * WINDOW + G)
+    return stage + (0 if global_state else 2 * 3 * 4 * NW * L * 2 * SEG)
+
+
+def wavefront_forward_pairs(par, db, zq, zr, W: int, Wcap: int, a_lo: int,
+                            scoring: Scoring, config: AlignConfig, seg=SEG):
+    """The kernel's algorithm in plain PyTorch: real lanes only, one cell
+    per lane pair and wavefront, segments of `seg` owned pairs computed
+    over windows HALO pairs wider on each side, carries exchanged per
+    lane once a group, captures written as they happen, each task
+    stopped after task_groups. Same contract and outputs as
+    wavefront_forward_plain (which computes every lane, as the TPU
+    kernel does)."""
+    match_s, mismatch = int(scoring.match), int(scoring.mismatch)
+    open_, ext = int(scoring.gap_open), int(scoring.gap_extend)
+    n_groups, B = db.shape[:2]
+    GWp = zq.shape[2]
+    dev = par.device
+    i64 = torch.int64
+    Wh = W // 2
+    Wn = seg + 2 * HALO
+    nseg = -(-Wh // seg)
+    w = torch.arange(Wn, device=dev, dtype=i64)
+    pp = (torch.arange(nseg, device=dev, dtype=i64)[:, None] * seg - HALO
+          + w[None, :])[None]                                 # (1, nseg, Wn)
+    valid = (pp >= 0) & (pp < Wh)
+    owned = valid & (w >= HALO) & (w < HALO + seg)
+    par = par.to(i64)
+    nn = par[:, 0].view(B, 1, 1)
+    mm = par[:, 1].view(B, 1, 1)
+    dmin = par[:, 2].view(B, 1, 1)
+    ngt = task_groups(par, n_groups, a_lo).view(B, 1, 1)
+    buf = torch.full((3, B, W), NEG, dtype=i64, device=dev)   # H, E, F
+    hatn = torch.full((B, Wcap), NEG, dtype=i64, device=dev)
+    lcv = hatn.clone()
+    lci = torch.zeros((B, Wcap), dtype=i64, device=dev)
+    negcol = torch.full((B, nseg, 1), NEG, dtype=i64, device=dev)
+
+    def lanes_of(x, lanes, width, fill):
+        ok = (lanes >= 0) & (lanes < width)
+        idx = lanes.clamp(0, width - 1).expand(B, nseg, Wn).reshape(B, -1)
+        got = torch.gather(x, 1, idx).view(B, nseg, Wn)
+        return torch.where(ok, got, fill)
+
+    def store(x, lanes, vals, mask):
+        bi, si, wi = torch.nonzero(mask.expand(B, nseg, Wn), as_tuple=True)
+        x[bi, lanes.expand(B, nseg, Wn)[bi, si, wi]] = vals[bi, si, wi]
+
+    for g in range(int(ngt.max()) if B else 0):
+        act = ngt > g
+        d = db[g].to(i64)
+        c0, adv = d[:, 0].view(B, 1, 1), d[:, 1].view(B, 1, 1)
+        hit = int(d[0, 2]) > 0
+        a0 = a_lo + g * G
+        u0 = a0 - c0
+        lane_a = 2 * pp + ((u0 - 1) & 1)      # active at a0 - 1
+        lane_b = 2 * pp + (u0 & 1)            # active at a0 - 2
+        ok_a = valid & (lane_a + adv >= 0) & (lane_a + adv < W)
+        ok_b = valid & (lane_b + adv >= 0) & (lane_b + adv < W)
+        hp, ep, fp = (torch.where(ok_a, lanes_of(x, lane_a + adv, W, NEG),
+                                  NEG) for x in buf)
+        h2 = torch.where(ok_b, lanes_of(buf[0], lane_b + adv, W, NEG), NEG)
+        zqg, zrg = zq[g].to(i64), zr[g].to(i64)
+        for t in range(G):
+            a = a0 + t
+            u = a - c0
+            jv = a + c0
+            odd = (u & 1) == 1
+            k = 2 * pp + (u & 1)
+            left_h = torch.cat([negcol, hp[..., :-1]], 2)
+            left_e = torch.cat([negcol, ep[..., :-1]], 2)
+            right_h = torch.cat([hp[..., 1:], negcol], 2)
+            right_f = torch.cat([fp[..., 1:], negcol], 2)
+            hl = torch.where(odd, hp, left_h)
+            el = torch.where(odd, ep, left_e)
+            hr = torch.where(odd, right_h, hp)
+            fr = torch.where(odd, right_f, fp)
+            f_new = torch.maximum(hr + open_, fr + ext)
+            e_new = torch.maximum(hl + open_, el + ext)
+            e_new = torch.where(e_new > NEG // 2, e_new, NEG)
+            qv = lanes_of(zqg, G - 1 - t + k, GWp, 4)
+            rv = lanes_of(zrg, t + k, GWp, 5)
+            sub = torch.where(qv == rv, match_s, mismatch)
+            i = (u - k) >> 1
+            j = (jv + k) >> 1
+            i1n = (i >= 1) & (i <= nn)
+            jge1 = j >= 1
+            jin0 = (j >= 0) & (j <= mm)
+            diag = torch.where(i1n & jge1 & (j <= mm), h2 + sub, NEG)
+            col0 = 0 if config.free_start_s1 else open_ + (a - 1) * ext
+            diag = torch.where(i1n & (j == 0), col0, diag)
+            gg = torch.maximum(diag, torch.where(jge1, f_new, NEG))
+            h = torch.maximum(gg, torch.where(jge1, e_new, NEG))
+            h = torch.where(i1n & jin0, h, NEG)
+            if config.free_start_s2:
+                h0v = 0 if a >= 0 else NEG
+            else:
+                h0v = open_ + (a - 1) * ext if a > 0 else \
+                    (0 if a == 0 else NEG)
+            h0v = torch.where(a <= mm, h0v, NEG)
+            h = torch.where(i == 0, h0v, h)
+            h, e_new, f_new = (torch.where(valid, x, NEG)
+                               for x in (h, e_new, f_new))
+            if hit:
+                cap = owned & act & (h > NEG)
+                xa = k + c0 - dmin
+                store(hatn, xa, h, cap & (i == nn))
+                at_m = cap & (j == mm) & (i >= 0) & (i <= nn)
+                store(lcv, xa, h, at_m)
+                store(lci, xa, i, at_m)
+            h2, hp, ep, fp = hp, h, e_new, f_new
+        done = owned & act
+        lane_a = 2 * pp + ((u0 + 1) & 1)      # active at a0 + G - 1
+        for x, v in zip(buf, (hp, ep, fp)):
+            store(x, lane_a, v, done)
+        store(buf[0], lane_b, h2, done)
+    return hatn.to(torch.int32), lcv.to(torch.int32), lci.to(torch.int32)
+
+
 def wavefront_forward_cuda(par, db, zq, zr, W: int, Wcap: int, a_lo: int,
-                           scoring: Scoring, config: AlignConfig):
-    """Launch csrc/wavefront_fwd.cu; same contract as the plain version."""
+                           scoring: Scoring, config: AlignConfig, plan=None):
+    """Launch csrc/wavefront_fwd.cu; same contract as the plain version.
+    `plan` (C, NW, L, global_state) forces a launch shape (default
+    launch_plan(B, W))."""
     n_groups, B, GWp = zq.shape
     dev = par.device
     for name, x, dt in (('par', par, torch.int32), ('db', db, torch.int32),
@@ -238,16 +415,20 @@ def wavefront_forward_cuda(par, db, zq, zr, W: int, Wcap: int, a_lo: int,
     if par.shape != (B, 128) or db.shape != (n_groups, B, 128) \
             or zr.shape != zq.shape:
         raise ValueError('inconsistent wavefront input shapes')
+    C, NW, L, glob = plan or launch_plan(B, W)
     hatn = torch.empty((B, Wcap), dtype=torch.int32, device=dev)
     lcv = torch.empty((B, Wcap), dtype=torch.int32, device=dev)
     lci = torch.empty((B, Wcap), dtype=torch.int32, device=dev)
+    scratch = torch.empty((B * 6 * W if glob else 1,), dtype=torch.int32,
+                          device=dev)
     lib = cuda_lib.lib()
     with cuda_lib.timed('wavefront_fwd', dev, (par, db, zq, zr, hatn, lcv,
                                                lci)):
         err = lib.wavefront_fwd_launch(
             par.data_ptr(), db.data_ptr(), zq.data_ptr(), zr.data_ptr(),
-            hatn.data_ptr(), lcv.data_ptr(), lci.data_ptr(), B, W, Wcap,
-            GWp, n_groups, a_lo, int(scoring.match), int(scoring.mismatch),
+            hatn.data_ptr(), lcv.data_ptr(), lci.data_ptr(),
+            scratch.data_ptr(), B, W, Wcap, GWp, n_groups, a_lo, C, NW, L,
+            int(glob), int(scoring.match), int(scoring.mismatch),
             int(scoring.gap_open), int(scoring.gap_extend),
             int(config.free_start_s1), int(config.free_start_s2),
             cuda_lib.stream_ptr(dev))

@@ -58,6 +58,12 @@ PATHLESS_BRIDGE_QUAL_ONE_DEAD_END_WITH_LINEAR_SEQS = 0.4
 PATHLESS_BRIDGE_QUAL_NO_DEAD_ENDS_WITH_LINEAR_SEQS = 0.2
 LONG_READ_BRIDGE_HALF_QUAL_LENGTH = 2000
 
+# Bridge quality floors by --mode (ref settings.py:113-176), read by the
+# command line (pipeline/main.get_arguments)
+CONSERVATIVE_MIN_BRIDGE_QUAL = 25.0
+NORMAL_MIN_BRIDGE_QUAL = 10.0
+BOLD_MIN_BRIDGE_QUAL = 1.0
+
 # String-graph assembly + polish (ref settings.py:30-45, 169-174)
 CONTIG_READ_QSCORE = 40
 RACON_POLISH_LOOP_COUNT_HYBRID = 2
