@@ -95,8 +95,29 @@ Phases (every failed check raises, so the exit code is nonzero):
      canonical_rotation say; lists the pieces under 99%, the rotation
      span, the wave launches with their tracks and each kernel's device
      time beside its bound; the outputs stay in chiprun_out/cli/;
+ 11. hybrid assembly through the command line (`python -m
+     unicycler_tpu_torch --short_read_graph G.gfa -l reads.fastq -o out`)
+     on phase 7's repeat genome cut to a 2 Mbp chromosome + 100 kbp
+     plasmid: its collapsed overlap-0 GFA (copy counts as depths) is the
+     short-read graph, and reads of the slice's model at 8x
+     (HYBRID_DEPTH) over both replicons are the long reads; the JAX
+     defaults (--mode normal, 3 bridging rounds) with --keep 0: copy
+     depth, cleaning, anchors, the four bridge kinds (miniasm with the
+     contigs placed in the polished unitigs), long-read alignment to the
+     graph, bridge application, merging, final clean, rotation; checks
+     that every CIGAR of the phase re-tallies, that assembly.fasta (10 kb
+     pieces) aligns to the truth at >= 99% identity over >= 99% of the
+     genome with no misjoin (consecutive pieces one piece apart on one
+     replicon and strand), that at least 18 of the 19 planted copies are
+     resolved (their flanks in one sequence, on the true allele's
+     distance), that the plasmid is one circular contig rotated as
+     rotation.py says and that kernels 1, 2, 4 and 5 ran; prints the
+     spans, each bridge kind's count and seconds, each kernel's device
+     time beside the wall and the peak device memory; the outputs stay in
+     chiprun_out/hybrid/;
   8. summary (printed last): one {"kernels": [...]} line with all seven
-     kernels, then the card's line.
+     kernels (each also with its launches on phase 11's path), then the
+     card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
 without the package beside this script. Details go to
@@ -138,6 +159,9 @@ BYTES_PER_STEP_BANDED_WALK = 8
 # section 4)
 ASSEMBLY_DEPTH = 15.0
 ASSEMBLY_CHROMOSOME = 2_000_000
+# the hybrid phase's long-read depth (users run 20-100x; cut to the time
+# limit, PERF.md section 4); its chromosome is ASSEMBLY_CHROMOSOME
+HYBRID_DEPTH = 8.0
 
 
 def log(msg=''):
@@ -1337,6 +1361,20 @@ def bridging_workload(seed, genome=5_000_000, plasmid=100_000,
     circular plasmid as one more segment, the collapsed overlap-0 GFA, and
     `per_copy` reads of the slice's length and error model around each
     copy. Returns (gfa_text, copies, reads, anchor segment numbers)."""
+    from unicycler_tpu_torch import synth
+    rng, chrom, _, gfa, copies, anchors = repeat_replicons(
+        seed, genome, plasmid, families)
+    reads = synth.reads_around(rng, chrom, copies, per_copy,
+                               min_flank=min_flank)
+    return gfa, copies, reads, anchors
+
+
+def repeat_replicons(seed, genome, plasmid, families):
+    """The replicons of phases 7 and 11 from `seed`: the chromosome with
+    the families' copies planted (synth.repeat_genome) and the plasmid,
+    with their collapsed overlap-0 GFA (the plasmid one segment linked to
+    itself). Returns (the generator, to draw reads from next; chromosome;
+    plasmid; gfa_text; copies; anchor segment numbers)."""
     import numpy as np
     from unicycler_tpu_torch import synth
     rng = np.random.default_rng(seed)
@@ -1347,13 +1385,11 @@ def bridging_workload(seed, genome=5_000_000, plasmid=100_000,
     lines = gfa.splitlines(keepends=True)
     n_seg = sum(line.startswith('S\t') for line in lines)
     pnum = n_seg + 1
-    gfa = ''.join(lines[:n_seg]) \
-        + 'S\t%d\t%s\tDP:f:1.0\n' % (pnum, synth.random_replicons(
-            rng, [plasmid])[0]) \
+    pseq = synth.random_replicons(rng, [plasmid])[0]
+    gfa = ''.join(lines[:n_seg]) + 'S\t%d\t%s\tDP:f:1.0\n' % (pnum, pseq) \
         + ''.join(lines[n_seg:]) + 'L\t%d\t+\t%d\t+\t0M\n' % (pnum, pnum)
-    reads = synth.reads_around(rng, chrom, copies, per_copy,
-                               min_flank=min_flank)
-    return gfa, copies, reads, list(range(1, n_copies + 2)) + [pnum]
+    return (rng, chrom, pseq, gfa, copies,
+            list(range(1, n_copies + 2)) + [pnum])
 
 
 def phase_bridging(args, dev, report, workload=None):
@@ -1709,14 +1745,16 @@ def assembly_workload(seed, genome=5_000_000, plasmid=100_000, depth=20.0):
     return reps, synth.simulate_read_set(rng, reps, depth)
 
 
-def identity_to_truth(seqs, reps, dev, chunk=10000):
+def identity_to_truth(seqs, reps, dev, chunk=10000, placements=None):
     """Cut the assembled sequences ((name, sequence) pairs) into
     `chunk`-bp pieces, align them to the truth replicons (each extended by
     `chunk` bases across its origin) with align_reads_to_refs, and return
     (identity of the pieces' best alignments, weighted by piece length;
     fraction of the genome those alignments cover; the pieces under 99%
     identity, as (piece, identity, replicon, start, end of its alignment
-    on the truth); pieces; pieces aligned)."""
+    on the truth); pieces; pieces aligned). Given a list `placements`,
+    appends (sequence name, piece offset, replicon, start, end, reverse)
+    of each aligned piece's best alignment to it."""
     import numpy as np
     from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
     from unicycler_tpu_torch.align.semi_global import align_reads_to_refs
@@ -1727,6 +1765,7 @@ def identity_to_truth(seqs, reps, dev, chunk=10000):
             if len(seq) - k >= 1000:
                 pieces.append(Read('%s_%d' % (name, k), seq[k:k + chunk],
                                    None))
+                pieces[-1].origin = (name, k)
     refs = [Reference(str(i), s + s[:chunk]) for i, s in enumerate(reps)]
     align_reads_to_refs(pieces, refs, AlignmentScoringScheme('3,-6,-5,-2'),
                         low_score_threshold=70.9, device=dev)
@@ -1746,6 +1785,10 @@ def identity_to_truth(seqs, reps, dev, chunk=10000):
                         a.ref_end_pos))
         cover[ri][np.arange(a.ref_start_pos, a.ref_end_pos)
                   % len(reps[ri])] = True
+        if placements is not None:
+            placements.append(piece.origin + (ri, a.ref_start_pos,
+                                              a.ref_end_pos,
+                                              bool(a.rev_comp)))
     return (ident / max(length, 1), sum(int(c.sum()) for c in cover)
             / sum(len(s) for s in reps), low, len(pieces), aligned)
 
@@ -1955,6 +1998,275 @@ def phase_assembly(args, dev, report, workload=None):
     return launches, per_kernel
 
 
+def hybrid_workload(seed, genome=ASSEMBLY_CHROMOSOME, depth=HYBRID_DEPTH,
+                    plasmid=100_000,
+                    families=((5000, 7, 250), (1300, 12, 250))):
+    """Phase 11's workload: phase 7's repeat genome (repeat_replicons) cut
+    to `genome` bp, its collapsed overlap-0 GFA with copy counts as depths
+    as the short-read graph, and long reads of the slice's length and error
+    model over both replicons (both circular) at `depth`-fold coverage
+    (synth.simulate_read_set). Returns (gfa_text, [chromosome, plasmid],
+    copies, reads)."""
+    from unicycler_tpu_torch import synth
+    rng, chrom, pseq, gfa, copies, _ = repeat_replicons(seed, genome, plasmid,
+                                                        families)
+    reps = [chrom, pseq]
+    return gfa, reps, copies, synth.simulate_read_set(rng, reps, depth)
+
+
+def copies_resolved(seqs, chrom, copies, flank=200, gap=500, slack=100):
+    """Which planted repeat copies an assembly resolves: a copy is resolved
+    when one sequence holds the `flank` bases of unique sequence `gap`
+    bases before the copy and those `gap` bases after it, on one strand,
+    in order, as far apart as on the truth within `slack` bases (an
+    allele is 250 bases longer or shorter). Circular sequences are
+    searched across their origin. Returns one bool a copy."""
+    from unicycler_tpu_torch.misc import reverse_complement
+    doubled = [s + s for s in seqs]
+    doubled += [reverse_complement(s) for s in doubled]
+    out = []
+    for cp in copies:
+        left = chrom[cp.start - gap - flank:cp.start - gap]
+        right = chrom[cp.end + gap:cp.end + gap + flank]
+        want = (cp.end + gap) - (cp.start - gap - flank)
+        ok = False
+        for seq in doubled:
+            i = seq.find(left)
+            while i >= 0 and not ok:
+                j = seq.find(right, i)
+                ok = j >= 0 and abs((j - i) - want) <= slack
+                i = seq.find(left, i + 1)
+            if ok:
+                break
+        out.append(ok)
+    return out
+
+
+def misjoins(placements, reps, chunk=10000, slack=1000):
+    """Consecutive 10 kb pieces of one assembled sequence whose best
+    alignments disagree: on another replicon or strand, or not one piece
+    apart on the truth (mod the replicon's length, within `slack`).
+    placements: (sequence name, piece offset, replicon, start, end,
+    reverse) of every aligned piece (identity_to_truth)."""
+    by_seq = {}
+    for name, k, ri, start, end, rev in placements:
+        by_seq.setdefault(name, []).append((k, ri, start, end, rev))
+    bad = []
+    for name, pieces in sorted(by_seq.items()):
+        pieces.sort()
+        for a, b in zip(pieces, pieces[1:]):
+            if b[0] - a[0] != chunk:
+                continue
+            length = len(reps[a[1]])
+            step = (b[2] - a[2]) if not a[4] else (a[3] - b[3])
+            if a[1] != b[1] or a[4] != b[4] or \
+                    abs((step % length) - chunk) > slack:
+                bad.append((name, a[0], b[0]))
+    return bad
+
+
+def phase_hybrid(args, dev, report, workload=None):
+    """Hybrid assembly on a supplied short-read graph through the command
+    line (`python -m unicycler_tpu_torch --short_read_graph G.gfa -l
+    reads.fastq`, as pipeline.main.main runs it) on the card; checks every
+    CIGAR of the phase, assembly.fasta against the truth, the planted
+    repeat copies, the plasmid's circle and rotation and the kernels the
+    phase launched."""
+    import torch
+    from unicycler_tpu_torch.align import semi_global
+    from unicycler_tpu_torch.io.fastx import load_fasta
+    from unicycler_tpu_torch.ops import banded, cuda_lib, pairwise
+    from unicycler_tpu_torch.pipeline import main as cli
+    from unicycler_tpu_torch.utils import trace
+
+    log('== phase 11: hybrid assembly (python -m unicycler_tpu_torch '
+        '--short_read_graph G.gfa -l reads.fastq on %s)' % dev)
+    t0 = time.time()
+    gfa, reps, copies, sim = workload or hybrid_workload(args.seed + 4)
+    out_dir = os.path.join(os.path.dirname(args.out), 'hybrid')
+    os.makedirs(out_dir, exist_ok=True)
+    gfa_file = os.path.join(out_dir, 'short_read_graph.gfa')
+    reads_fq = os.path.join(out_dir, 'reads.fastq')
+    with open(gfa_file, 'w') as f:
+        f.write(gfa)
+    write_fastq(reads_fq, sim)
+    total = sum(len(s) for _, s, _ in sim)
+    log('genome %s bp (circular), %d repeat copies; graph %d segments; %d '
+        'reads, %d bp (%.1fx; set-up %.1f s)'
+        % ('+'.join(str(len(s)) for s in reps), len(copies),
+           gfa.count('S\t'), len(sim), total,
+           total / sum(len(s) for s in reps), time.time() - t0))
+
+    # observe every alignment of the phase, re-tallied at once: the banded
+    # pairs (polish, bridging), the full-matrix pairs and the semi-global
+    # read alignments (contig placement, long reads to the graph)
+    tally = {'checked': 0, 'bad': 0}
+    before_rotation = {}
+    inner_align, inner_pairs = banded.align_banded, pairwise.align_pairs
+    inner_refs = semi_global.align_reads_to_refs
+    inner_rotate = cli.rotate_completed_replicons
+
+    def check(q_list, r_list, out, scoring):
+        for q, r, pa in zip(q_list, r_list, out):
+            if pa is not None and pa.cigar:
+                tally['checked'] += 1
+                tally['bad'] += retally(q, r, pa, scoring) != pa.score
+
+    def observed_align(tasks, scoring, config=None, band=25,
+                       need_cigar=True, device=None):
+        out = inner_align(tasks, scoring, config=config, band=band,
+                          need_cigar=need_cigar, device=device)
+        check([t.q for t in tasks], [t.r for t in tasks], out, scoring)
+        return out
+
+    def observed_pairs(q_list, r_list, scoring=None, **kw):
+        out = inner_pairs(q_list, r_list, scoring=scoring, **kw)
+        check(q_list, r_list, out, scoring)
+        return out
+
+    def observed_refs(reads, references, scoring_scheme, **kw):
+        out = inner_refs(reads, references, scoring_scheme, **kw)
+        for read in reads:
+            for a in read.alignments:
+                tally['checked'] += 1
+                tally['bad'] += a.raw_score != a._pair.score
+        return out
+
+    def observed_rotate(graph, cli_args, counter):
+        for num in graph.completed_circular_replicons():
+            before_rotation[num] = graph.segments[num].forward_sequence
+        report['hybrid_cli_args'] = {k: v for k, v in vars(cli_args).items()
+                                     if k.startswith('start_gene')}
+        return inner_rotate(graph, cli_args, counter)
+
+    argv = ['--short_read_graph', gfa_file, '-l', reads_fq, '-o', out_dir,
+            '--verbosity', '0', '--keep', '0']
+    trace.reset()
+    trace.enable()
+    cuda_lib.TIMINGS = []
+    banded.align_banded, pairwise.align_pairs = observed_align, observed_pairs
+    semi_global.align_reads_to_refs = observed_refs
+    cli.rotate_completed_replicons = observed_rotate
+    sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    try:
+        graph = cli.main(argv, device=dev)
+        sync(dev)
+    finally:
+        banded.align_banded, pairwise.align_pairs = inner_align, inner_pairs
+        semi_global.align_reads_to_refs = inner_refs
+        cli.rotate_completed_replicons = inner_rotate
+        os.remove(reads_fq)
+        os.remove(gfa_file)
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+    trace.disable()
+    peak = torch.cuda.max_memory_allocated() if dev.type == 'cuda' else 0
+    counters = trace.as_dict()['counters']
+    spans = trace.as_dict()['spans']
+    per_kernel = kernel_costs(timings)
+    fasta = load_fasta(os.path.join(out_dir, 'assembly.fasta'))
+    if not fasta or not os.path.isfile(os.path.join(out_dir,
+                                                    'assembly.gfa')):
+        raise AssertionError('the command line did not write both files')
+
+    lens = sorted((len(s) for _, s in fasta), reverse=True)
+    circular = sorted(n for n in graph.segments
+                      if graph.forward_links.get(n) == [n])
+    t1 = time.time()
+    placements = []
+    ident, covered, low, n_pieces, n_aligned = identity_to_truth(
+        fasta, reps, dev, placements=placements)
+    joins = misjoins(placements, reps)
+    resolved = copies_resolved([s for _, s in fasta], reps[0], copies)
+    check_s = time.time() - t1
+    doubled = reps[1] + reps[1]
+    plasmid = [n for n in circular
+               if graph.segments[n].get_length() == len(reps[1])
+               and (graph.segments[n].forward_sequence in doubled
+                    or graph.segments[n].reverse_sequence in doubled)]
+    # the plasmid's rotation re-checked (the chromosome's start-gene
+    # search would add ~11 s to the phase; phase 10 checks every replicon)
+    ns = argparse.Namespace(**report.get('hybrid_cli_args', {}))
+    rotations = []
+    for num in plasmid:
+        if num not in before_rotation:
+            continue
+        seq = before_rotation[num]
+        want, how = expected_rotation(seq, ns)
+        rotations.append({'segment': num, 'length': len(seq), 'how': how,
+                          'ok': graph.segments[num].forward_sequence == want})
+    busy = sum(a['ms'] for a in per_kernel.values())
+    kinds = {k[len('bridges.'):]: v for k, v in counters.items()
+             if k.startswith('bridges.')}
+    log('hybrid assembly (command line): %.2f s wall; %d sequences (%d '
+        'circular), %d bp, longest %s; peak device memory %.1f MiB'
+        % (wall, len(lens), len(circular), sum(lens), lens[:3],
+           peak / 2 ** 20))
+    log('spans (s): %s' % json.dumps(
+        {k: v['seconds'] for k, v in spans.items() if k.count('/') <= 1}))
+    log('bridges by kind (count, s): %s' % json.dumps(
+        {k: (v, spans.get(k + '_bridges', {}).get('seconds'))
+         for k, v in sorted(kinds.items())}))
+    log('kernel launches: %s' % json.dumps(launches))
+    tracks = wave_launch_shapes(timings, counters)
+    log_kernel_times(per_kernel, launches)
+    log('device busy at most %.1f%% of the hybrid wall (kernel time / wall)'
+        % (100 * busy * 1e-3 / wall))
+    log('alignments: %d CIGARs re-tallied, %d off their score'
+        % (tally['checked'], tally['bad']))
+    log('repeat copies resolved: %d/%d; resolved (copy, left, right): %s; '
+        'unresolved: %s'
+        % (sum(resolved), len(copies), json.dumps(
+            [(i, cp.left, cp.right) for i, cp in enumerate(copies)
+             if resolved[i]]), json.dumps(
+            [(i, cp.left, cp.right) for i, cp in enumerate(copies)
+             if not resolved[i]])))
+    log('plasmid: circular segment(s) %s; rotation %s; circular replicons '
+        'rotated %s' % (plasmid, json.dumps(rotations),
+                        sorted(before_rotation)))
+    log('truth: %d pieces of 10 kb of assembly.fasta, %d aligned, identity '
+        '%.3f%%, covering %.2f%% of the genome; misjoins %s; pieces under '
+        '99%% %s (%.1f s); assembly.gfa and assembly.fasta in %s'
+        % (n_pieces, n_aligned, ident, 100 * covered, json.dumps(joins),
+           json.dumps(low), check_s, out_dir))
+    report['hybrid'] = {
+        'wall_s': wall, 'reads': len(sim), 'read_bases': total,
+        'genome': [len(s) for s in reps], 'sequences': lens,
+        'circular': circular, 'retallied': tally['checked'],
+        'tally_bad': tally['bad'], 'identity': ident, 'covered': covered,
+        'low_pieces': low, 'misjoins': joins, 'resolved': resolved,
+        'plasmid': plasmid, 'rotations': rotations, 'launches': launches,
+        'wave_tracks': tracks, 'per_kernel': per_kernel,
+        'counters': counters, 'spans': spans, 'peak_bytes': peak,
+        'bridges': kinds}
+    if tally['bad']:
+        raise AssertionError('%d CIGARs do not re-tally' % tally['bad'])
+    if not tally['checked']:
+        raise AssertionError('the hybrid run aligned nothing')
+    if ident < 99.0 or covered < 0.99 or joins:
+        raise AssertionError('assembly reaches %.3f%% identity over %.2f%% '
+                             'of the genome with %d misjoins (gate: 99%% '
+                             'over 99%%, none)'
+                             % (ident, 100 * covered, len(joins)))
+    if sum(resolved) < len(copies) - 1:
+        raise AssertionError('%d of %d repeat copies resolved (gate: all '
+                             'but one)' % (sum(resolved), len(copies)))
+    if len(plasmid) != 1 or not rotations or \
+            not all(r['ok'] for r in rotations) or \
+            plasmid[0] not in before_rotation:
+        raise AssertionError('the plasmid is not one circular contig '
+                             'rotated as rotation.py says')
+    for name in ('wavetape_fwd', 'wavetape_walk', 'tape_fwd', 'tape_walk'):
+        if launches[name] <= 0:
+            raise AssertionError('the hybrid run did not launch %s' % name)
+    return launches, per_kernel
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2007,6 +2319,8 @@ def main():
         '9 wavefront', phase_wavefront, dev, kres, report)
     asm_launches, asm_kernels = timed_phase('10 assembly', phase_assembly,
                                             args, dev, report)
+    hybrid_launches, hybrid_kernels = timed_phase(
+        '11 hybrid', phase_hybrid, args, dev, report)
     assert 'jax' not in sys.modules
 
     sources = {'wavetape_fwd': ('unicycler_tpu_torch/csrc/wavetape_fwd.cu',
@@ -2073,6 +2387,11 @@ def main():
             entry['main_path_bound_ms'] = main_kernels[kname]['bound_ms']
         if kname == 'wavefront_fwd':
             entry['main_path_ms'] = wavefront_ms
+        # and on the hybrid path (phase 11), counted from 0 just before it
+        entry['hybrid_launches'] = hybrid_launches.get(kname, 0)
+        if kname in hybrid_kernels:
+            entry['hybrid_ms'] = hybrid_kernels[kname]['ms']
+            entry['hybrid_bound_ms'] = hybrid_kernels[kname]['bound_ms']
         kernels.append(entry)
     report['kernels'] = kernels
     report['kernel_rows'] = kres

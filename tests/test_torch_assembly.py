@@ -128,11 +128,3 @@ def test_make_miniasm_string_graph_matches_jax(workload, tmp_path,
     # one circular unitig covering the genome
     assert len(got.segments) == 1 and got.segment_is_circular('1')
     assert abs(got.segments['1'].get_length() - len(genome)) < 300
-
-
-def test_hybrid_branches_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match='pipeline slice'):
-        thy.make_miniasm_string_graph(object(), {}, None, None, None, None,
-                                      None, [], device='cpu')
-    with pytest.raises(NotImplementedError, match='pipeline slice'):
-        thy.get_miniasm_assembly_reads(object(), {}, None, 1)

@@ -605,3 +605,31 @@ def test_gpu_cli_matches_cpu_route(tmp_path):
         got = (tmp_path / 'gpu' / name).read_bytes()
         assert got == (tmp_path / 'cpu' / name).read_bytes(), name
         assert len(got) > 10000
+
+
+def test_gpu_hybrid_cli_matches_cpu_route(tmp_path):
+    """The command line's hybrid run (`--short_read_graph G.gfa -l
+    long.fastq`) on the card writes the same assembly.gfa and
+    assembly.fasta as on the CPU route, on a ~100 kbp synth.repeat_genome
+    (5 planted copies, its collapsed overlap-0 GFA as the short-read graph,
+    6 reads of the slice's error model around each copy)."""
+    dev = _cuda()
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.pipeline.main import main
+    rng = np.random.default_rng(8)
+    chrom, gfa, copies = synth.repeat_genome(
+        rng, [15000] * 6, [(2500, 3, 250), (1200, 2, 0)])
+    graph = tmp_path / 'short_read_graph.gfa'
+    graph.write_text(gfa)
+    sim = synth.reads_around(rng, chrom, copies, 6, n50=9000)
+    reads = tmp_path / 'long.fastq'
+    reads.write_text(''.join('@%s\n%s\n+\n%s\n' % (n, s, ',' * len(s))
+                             for n, s, _ in sim))
+    argv = ['--short_read_graph', str(graph), '-l', str(reads),
+            '--verbosity', '0', '--keep', '0']
+    main(argv + ['-o', str(tmp_path / 'gpu')], device=dev)
+    main(argv + ['-o', str(tmp_path / 'cpu')], device='cpu')
+    for name in ('assembly.gfa', 'assembly.fasta'):
+        got = (tmp_path / 'gpu' / name).read_bytes()
+        assert got == (tmp_path / 'cpu' / name).read_bytes(), name
+        assert len(got) > 90000

@@ -67,7 +67,10 @@ def _job():
                                    'create_long_read_bridges',
                                    'make_miniasm_string_graph',
                                    'polish_unitigs',
-                                   'wavefront_batch_corridor', 'main'])
+                                   'wavefront_batch_corridor', 'main',
+                                   'create_simple_long_read_bridges',
+                                   'create_miniasm_bridges', 'place_contigs',
+                                   'align_long_reads_to_assembly_graph'])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
@@ -112,6 +115,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             reads = tmp_path / 'reads.fq'
             reads.write_text('@r\nACGT\n+\nIIII\n')
             main.main(['-l', str(reads), '-o', str(tmp_path / 'out')])
+        elif entry == 'create_simple_long_read_bridges':
+            from unicycler_tpu_torch.bridges import long_read_simple
+            long_read_simple.create_simple_long_read_bridges(
+                None, str(tmp_path), 0, 1, {}, None, None, [])
+        elif entry == 'create_miniasm_bridges':
+            from unicycler_tpu_torch.bridges import miniasm
+            miniasm.create_miniasm_bridges(None, StringGraph(None), [], None,
+                                           0, 10.0)
+        elif entry == 'place_contigs':
+            hybrid.place_contigs(None, StringGraph(None), None, set())
+        elif entry == 'align_long_reads_to_assembly_graph':
+            from unicycler_tpu_torch.pipeline import main
+            args = main.get_arguments(['-o', str(tmp_path / 'out')])
+            main.align_long_reads_to_assembly_graph(None, [], args, {}, [],
+                                                    None)
         elif entry == 'wavefront_batch_corridor':
             q, r, _, _ = tasks_np(1, [50], False)[0]
             wavefront.wavefront_batch(q[None], r[None], [-60], [len(q)],

@@ -5,7 +5,8 @@ A long-read-only run of both packages on the 12 kbp genome of
 tests/test_pipeline_end_to_end.py (the port on its CPU route) writes the
 same assembly.gfa and assembly.fasta, byte for byte, and the JAX test's
 identity gates hold on the port's unitigs. get_arguments gives the same
-Namespace for the same argv; short-read input raises NotImplementedError;
+Namespace for the same argv; short reads with no graph raise
+NotImplementedError;
 the start-gene search and the canonical rotation equal the JAX package's
 on a replicon with a planted start gene.
 """
@@ -90,11 +91,13 @@ def test_cli_surface_matches_jax(tmp_path, argv):
 
 
 @pytest.mark.parametrize('argv', [['-1', 'a.fq', '-2', 'b.fq'],
-                                  ['-s', 'c.fq', '-l', 'reads.fq'],
-                                  ['--short_read_graph', 'g.gfa']],
-                         ids=['pairs', 'unpaired', 'graph'])
+                                  ['-s', 'c.fq', '-l', 'reads.fq']],
+                         ids=['pairs', 'unpaired'])
 def test_short_read_input_raises_not_implemented(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match='short-read slice'):
+    """Short reads with no graph to use or resume need the de Bruijn
+    assembler, and pairs the final short-read polish: both come with the
+    port's de Bruijn slice."""
+    with pytest.raises(NotImplementedError, match='de Bruijn slice'):
         tmain.main(argv + ['-o', str(tmp_path / 'out')], device='cpu')
 
 

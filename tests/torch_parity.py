@@ -67,3 +67,18 @@ def retally(q, r, pa, scoring_t=SCORING_T):
     if (i, j) != (int(pa.s1_end), int(pa.s2_end)):
         return None
     return total
+
+
+def run_both_mains(argv, jax_out, port_out):
+    """pipeline.main.main of both packages on one argv (the port on its
+    CPU route), each into its own output directory; returns the port's
+    final graph."""
+    from unicycler_tpu.pipeline import main as jmain
+    from unicycler_tpu_torch.pipeline import main as tmain
+    jmain.main(argv + ['-o', jax_out])
+    return tmain.main(argv + ['-o', port_out], device='cpu')
+
+
+def read_bytes(path):
+    with open(path, 'rb') as f:
+        return f.read()

@@ -1,4 +1,4 @@
-"""PAF-level read mapping from the minimiser index (a copy of
+"""PAF-level read-vs-graph mapping from the minimiser index (a copy of
 unicycler_tpu/align/minimap_like.py; host numpy, no device work).
 
 Replaces the reference's vendored in-process minimap plus its PAF parsing
@@ -11,7 +11,8 @@ the forward strands; strand '-' marks a reverse-orientation hit.
 
 from collections import defaultdict
 
-from .. import settings
+from .. import log, settings
+from ..io.fastx import load_long_reads
 from ..misc import (range_is_contained, range_overlap, range_overlap_size,
                     simplify_ranges)
 from ..ops import minimizer as mz
@@ -127,6 +128,27 @@ def _alignments_overlap(a, others, allowed_overlap):
     adjusted_start = a.read_start + allowed_overlap
     return any(range_overlap((adjusted_start, a.read_end),
                              (x.read_start, x.read_end)) > 0 for x in others)
+
+
+def align_long_reads_to_assembly_graph(graph, long_read_filename,
+                                       working_dir, threads):
+    """All long reads vs all graph segments, filtered (parity with
+    ref minimap_alignment.py:141-158; sensitivity-3 k per settings)."""
+    log.log('Aligning long reads to graph', 1)
+    read_dict, read_names, _ = load_long_reads(long_read_filename,
+                                               silent=True)
+    reads = [read_dict[n] for n in read_names]
+    refs = _graph_as_references(graph)
+    k = settings.SEED_KMER_SIZES[3]
+    return map_reads(refs, reads, k=k, w=10, filter_overlaps=True,
+                     allowed_overlap=settings.ALLOWED_MINIMAP_OVERLAP,
+                     filter_by_minimisers=True)
+
+
+def _graph_as_references(graph):
+    from ..io.fastx import Reference
+    return [Reference(str(num), seg.forward_sequence)
+            for num, seg in sorted(graph.segments.items())]
 
 
 def build_start_end_overlap_sets(minimap_alignments):

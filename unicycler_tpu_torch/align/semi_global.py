@@ -666,3 +666,20 @@ def print_alignment_summary_table(read_dict, verbosity,
     print_table(table, alignments='LR',
                 out=lambda s: log.log(s, verbosity))
 
+
+def load_sam_alignments(sam_filename, read_dict, reference_dict,
+                        scoring_scheme):
+    """Rebuild Alignment objects from a SAM file
+    (parity with ref unicycler_align.py:313-340)."""
+    alignments = []
+    with open(sam_filename, 'rt') as sam:
+        for line in sam:
+            line = line.strip()
+            if not line or line.startswith('@'):
+                continue
+            if line.split('\t', 3)[2] == '*':
+                continue
+            alignments.append(Alignment(sam_line=line, read_dict=read_dict,
+                                        reference_dict=reference_dict,
+                                        scoring_scheme=scoring_scheme))
+    return alignments

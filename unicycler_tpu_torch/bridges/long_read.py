@@ -172,6 +172,38 @@ class LongReadBridge(object):
 
         self.quality = 100.0 * math.sqrt(self.quality)
 
+    def set_path_based_on_availability(self, graph, unbridged_graph):
+        """Re-choose among equal paths by availability
+        (ref bridge_long_read.py:345-385)."""
+        best_path = self.all_paths[0][0]
+        best_sequence = unbridged_graph.get_path_sequence(best_path)
+        best_scaled_score = self.all_paths[0][3]
+        best_availability = graph.get_path_availability(best_path)
+        for i in range(1, len(self.all_paths)):
+            potential_path = self.all_paths[i][0]
+            potential_scaled_score = self.all_paths[i][3]
+            potential_availability = graph.get_path_availability(
+                potential_path)
+            if potential_scaled_score == 100.0:
+                relative_score = 1.0
+            else:
+                relative_score = min(1.0, (100.0 - best_scaled_score)
+                                     / (100.0 - potential_scaled_score))
+            relative_availability = min(2.0, (1.1 - best_availability)
+                                        / (1.1 - potential_availability))
+            if relative_score * relative_availability > 1.0:
+                best_path = potential_path
+                best_sequence = unbridged_graph.get_path_sequence(
+                    potential_path)
+                best_scaled_score = potential_scaled_score
+                best_availability = potential_availability
+        self.graph_path = best_path
+        self.bridge_sequence = best_sequence
+
+    @staticmethod
+    def get_type_score():
+        return 2
+
     @staticmethod
     def get_type_name():
         return 'long read'

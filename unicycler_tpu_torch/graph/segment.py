@@ -6,7 +6,7 @@ Sequences are strings (graph topology work is host-side); device code pulls
 int8 code arrays on demand via the codes() helper.
 """
 
-from ..misc import reverse_complement
+from ..misc import add_line_breaks_to_sequence, reverse_complement
 
 
 class Segment(object):
@@ -28,6 +28,13 @@ class Segment(object):
         shown = seq if len(seq) <= 6 else seq[:3] + '...' + seq[-3:]
         return str(self.number) + ' (' + shown + ')'
 
+    def add_sequence(self, sequence, positive):
+        if positive:
+            self.forward_sequence = sequence
+        else:
+            self.reverse_sequence = sequence
+        self._codes = None
+
     def build_other_sequence_if_necessary(self):
         if not self.forward_sequence:
             self.forward_sequence = reverse_complement(self.reverse_sequence)
@@ -47,10 +54,26 @@ class Segment(object):
     def get_length_no_overlap(self, overlap):
         return len(self.forward_sequence) - overlap
 
+    def is_homopolymer(self):
+        seq = self.forward_sequence.lower()
+        return len(seq) > 0 and seq.count(seq[0]) == len(seq)
+
     def gfa_segment_line(self):
         return ('S\t' + str(self.number) + '\t' + self.forward_sequence
                 + '\tLN:i:' + str(self.get_length())
                 + '\tdp:f:' + str(self.depth) + '\n')
+
+    def get_fasta_name_and_description_line(self, circular_seg_nums=None):
+        line = ('>' + str(self.number) + ' length=' + str(self.get_length())
+                + ' depth=' + ('%.2f' % self.depth) + 'x')
+        if circular_seg_nums and self.number in circular_seg_nums:
+            line += ' circular=true'
+        return line + '\n'
+
+    def save_to_fasta(self, fasta_filename):
+        with open(fasta_filename, 'w') as fasta:
+            fasta.write(self.get_fasta_name_and_description_line())
+            fasta.write(add_line_breaks_to_sequence(self.forward_sequence))
 
     def get_seg_type_label(self):
         """Bridge-type label for GFA display (ref segment.py:113-135)."""
@@ -63,3 +86,55 @@ class Segment(object):
             label += ':\\n' + '\\n'.join(textwrap.wrap(path_str, 40))
         return label
 
+    def trim_from_end(self, amount):
+        assert self.get_length() >= amount
+        if amount == 0:
+            return
+        self.forward_sequence = self.forward_sequence[:-amount]
+        self.reverse_sequence = self.reverse_sequence[amount:]
+        self._codes = None
+
+    def trim_from_start(self, amount):
+        assert self.get_length() >= amount
+        if amount == 0:
+            return
+        self.forward_sequence = self.forward_sequence[amount:]
+        self.reverse_sequence = self.reverse_sequence[:-amount]
+        self._codes = None
+
+    def append_to_forward_sequence(self, additional_seq):
+        self.forward_sequence = self.forward_sequence + additional_seq
+        self.reverse_sequence = reverse_complement(self.forward_sequence)
+        self._codes = None
+
+    def append_to_reverse_sequence(self, additional_seq):
+        self.reverse_sequence = self.reverse_sequence + additional_seq
+        self.forward_sequence = reverse_complement(self.reverse_sequence)
+        self._codes = None
+
+    def prepend_to_forward_sequence(self, additional_seq):
+        self.forward_sequence = additional_seq + self.forward_sequence
+        self.reverse_sequence = reverse_complement(self.forward_sequence)
+        self._codes = None
+
+    def prepend_to_reverse_sequence(self, additional_seq):
+        self.reverse_sequence = additional_seq + self.reverse_sequence
+        self.forward_sequence = reverse_complement(self.reverse_sequence)
+        self._codes = None
+
+    def remove_sequence(self):
+        self.forward_sequence = ''
+        self.reverse_sequence = ''
+        self._codes = None
+
+    def rotate_sequence(self, start_pos, flip):
+        """Rotate a circular segment to start at start_pos; optionally flip
+        strands (ref segment.py:196-211)."""
+        rotated = self.forward_sequence[start_pos:] + \
+            self.forward_sequence[:start_pos]
+        rc_rotated = reverse_complement(rotated)
+        if flip:
+            self.forward_sequence, self.reverse_sequence = rc_rotated, rotated
+        else:
+            self.forward_sequence, self.reverse_sequence = rotated, rc_rotated
+        self._codes = None

@@ -2,13 +2,15 @@
 
 Capability parity with the reference's global Log singleton
 (ref unicycler/log.py:25-120): section headers with timestamps, verbosity
-gating 0-3 and optional ANSI colour; the port keeps only the writers the
-alignment path calls. The implementation is original and simpler (no tput
+gating 0-3 and optional ANSI colour; the port keeps only the writers its
+pipeline calls. The implementation is original and simpler (no tput
 probing; colour decided from isatty).
 """
 
 import datetime
+import shutil
 import sys
+import textwrap
 
 
 BOLD = '\033[1m'
@@ -64,3 +66,12 @@ def log_section_header(message, verbosity=1):
     log('', verbosity)
     log(BOLD + UNDERLINE + message + END_FORMATTING + ' ' + DIM + time_str
         + END_FORMATTING, verbosity)
+
+
+def log_number_list(numbers, verbosity=1):
+    """Wrapped comma-separated number list (ref log.py:146)."""
+    width = min(shutil.get_terminal_size().columns, 100) - 1
+    text = ', '.join(str(n) for n in numbers)
+    for line in textwrap.wrap(text, width, initial_indent='  ',
+                              subsequent_indent='  '):
+        log(line, verbosity)

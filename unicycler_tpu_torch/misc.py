@@ -66,6 +66,14 @@ def weighted_average(a, b, weight_a, weight_b):
     return a * (weight_a / total) + b * (weight_b / total)
 
 
+def weighted_average_list(values, weights):
+    total = sum(weights)
+    if total == 0.0:
+        weights = [1.0] * len(values)
+        total = float(len(values))
+    return sum(v * (w / total) for v, w in zip(values, weights))
+
+
 def score_function(val: float, half_score_val: float) -> float:
     """0 → 0.0, half_score_val → 0.5, ∞ → 1.0 (ref misc.py:370-377)."""
     return 1.0 - (half_score_val / (half_score_val + val))

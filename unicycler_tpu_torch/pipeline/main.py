@@ -1,21 +1,31 @@
-"""The assembly pipeline's command line, long-read-only slice (counterpart
-of unicycler_tpu/pipeline/main.py).
+"""The assembly pipeline's command line (counterpart of
+unicycler_tpu/pipeline/main.py).
 
 get_arguments is the JAX package's whole option surface, with the same
 names and defaults, so the same argv gives the same Namespace. main runs
-what the port has: a long-read-only run (`-l reads.fq -o out`) loads the
-reads, assembles and polishes them (asm/hybrid.make_miniasm_string_graph
-with no short-read graph, its alignments on `device`), rotates the
-completed circular replicons to a start gene (pipeline/rotation, on the
-host) and writes assembly.gfa and assembly.fasta. Short-read input,
---short_read_graph and bridging on a graph need the short-read slice of
-the port and raise NotImplementedError.
+what the port has:
+
+  * a hybrid run on a supplied short-read graph
+    (`--short_read_graph G.gfa|G.fastg [-l reads.fq] -o out`, or the
+    resume of a run whose out/002_depth_filter.gfa exists): copy depth,
+    overlap removal and cleaning, anchors, SPAdes-contig and loop-unrolling
+    bridges, the miniasm string graph with the contigs placed in it,
+    simple long-read bridges, long-read alignment to the graph and
+    long-read bridges, bridge application, clean-up and merging over the
+    bridging rounds, final_clean, rotation and the output files;
+  * a long-read-only run (`-l reads.fq -o out`): the polished unitigs of
+    the long reads, rotated.
+
+Every call that aligns runs on `device`. The built-in de Bruijn assembler
+(short reads with no graph and no checkpoint to resume) and the final
+short-read polish of a -1/-2 run come with the port's de Bruijn slice and
+raise NotImplementedError.
 
 The port runs in one process: the JAX package's multi-host join
 (parallel/distributed.maybe_initialize) comes with the port's parallel
 slice and is not called here.
 
-    python -m unicycler_tpu_torch -l reads.fq -o out
+    python -m unicycler_tpu_torch --short_read_graph G.gfa -l reads.fq -o out
 
 main(arg_list=None, device=None) runs on CUDA unless the caller passes
 device='cpu' (a Python keyword, not an option).
@@ -25,24 +35,35 @@ import argparse
 import itertools
 import os
 import random
+import shutil
 import sys
 
 from .. import log, settings
 from ..align.scoring import AlignmentScoringScheme
+from ..align.semi_global import (load_sam_alignments,
+                                 semi_global_align_long_reads)
 from ..asm.hybrid import MiniasmFailure, make_miniasm_string_graph
+from ..bridges.long_read import create_long_read_bridges
+from ..bridges.long_read_simple import create_simple_long_read_bridges
+from ..bridges.loop_unroll import create_loop_unrolling_bridges
+from ..bridges.miniasm import create_miniasm_bridges
+from ..bridges.spades_contig import create_spades_contig_bridges
 from ..device import resolve_device
-from ..io.fastx import get_read_nickname_dict, load_long_reads
-from ..misc import quit_with_error
+from ..graph.assembly_graph import AssemblyGraph
+from ..graph.copy_depth import determine_copy_depth
+from ..io.fastx import Reference, get_read_nickname_dict, load_long_reads
+from ..misc import get_percentile, gfa_path, int_to_str, quit_with_error
 from ..utils import trace
 from ..version import __version__
 from .rotation import rotate_completed_replicons
 
 
-def _short_read_slice(what):
+def _de_bruijn_slice(what):
     return NotImplementedError(
-        '%s needs the short-read assembly graph, whose port comes with the '
-        'short-read slice; only long-read-only runs (-l without -1/-2/-s) '
-        'are ported' % what)
+        '%s needs the port\'s de Bruijn slice (the built-in short-read '
+        'assembler and the final short-read polish); give an existing '
+        'short-read graph with --short_read_graph (GFA or SPAdes FASTG) '
+        'and long reads with -l' % what)
 
 
 def get_arguments(args=None):
@@ -258,39 +279,157 @@ def get_arguments(args=None):
 
 
 def main(arg_list=None, device=None):
-    """A long-read-only run (ref unicycler.py:48-189); returns the final
-    graph. Its alignments run on `device` (None = CUDA)."""
+    """A hybrid run on a supplied short-read graph or a long-read-only run
+    (ref unicycler.py:48-189); returns the final graph. Its alignments run
+    on `device` (None = CUDA)."""
     random.seed(0)   # run-to-run determinism (ref unicycler.py:52)
     args = get_arguments(arg_list)
     device = resolve_device(device)
-    if args.short1 or args.short2 or args.unpaired:
-        raise _short_read_slice('short-read input (-1/-2/-s)')
-    if args.short_read_graph:
-        raise _short_read_slice('--short_read_graph')
+    if args.short1 or args.short2:
+        raise _de_bruijn_slice('short-read pairs (-1/-2)')
     os.makedirs(args.out, exist_ok=True)
     log.logger = log.Log(os.path.join(args.out, 'unicycler_tpu_torch.log'),
                          stdout_verbosity_level=args.verbosity)
-    if not args.long:
+
+    short_reads_available = bool(args.unpaired)   # -1/-2 raised above
+    long_reads_available = bool(args.long)
+    if not short_reads_available and not long_reads_available \
+            and not args.short_read_graph:
         quit_with_error('no input reads provided')
 
     counter = itertools.count(start=1)
-    scoring_scheme = AlignmentScoringScheme(args.scores)
-    read_dict, read_names, long_read_filename = \
-        load_long_reads(args.long, output_dir=args.out)
-    read_nicknames = get_read_nickname_dict(read_names)
+    bridges = []
 
-    graph = None
-    if not args.no_miniasm:
+    if short_reads_available or args.short_read_graph:
+        with trace.span('short_read_graph'):
+            graph = obtain_short_read_graph(args, counter)
+        with trace.span('copy_depth'):
+            determine_copy_depth(graph)
+        if args.keep > 0:
+            graph.save_to_gfa(gfa_path(args.out, next(counter),
+                                       'depth_filter'),
+                              save_copy_depth_info=True, newline=True,
+                              include_insert_size=True)
+        with trace.span('clean'):
+            clean_up_spades_graph(graph)
+        if args.keep > 0:
+            graph.save_to_gfa(gfa_path(args.out, next(counter),
+                                       'overlaps_removed'),
+                              save_copy_depth_info=True, newline=True,
+                              include_insert_size=True)
+        anchor_segments = get_anchor_segments(graph, args.min_anchor_seg_len)
+        if args.mode != 0:
+            bridges += _bridges('spades_contig', create_spades_contig_bridges,
+                                graph, anchor_segments)
+            bridges += _bridges('loop_unrolling',
+                                create_loop_unrolling_bridges, graph,
+                                anchor_segments)
+        graph.paths = {}
+    else:
+        graph = None
+        anchor_segments = []
+
+    scoring_scheme = AlignmentScoringScheme(args.scores)
+
+    if long_reads_available:
+        read_dict, read_names, long_read_filename = \
+            load_long_reads(args.long, output_dir=args.out)
+        read_nicknames = get_read_nickname_dict(read_names)
+    else:
+        read_dict, read_names, long_read_filename, read_nicknames = \
+            {}, [], '', {}
+
+    string_graph = None
+    if long_reads_available and not args.no_miniasm:
         try:
             with trace.span('long_read_assembly'):
-                graph = make_miniasm_string_graph(
-                    None, read_dict, long_read_filename, scoring_scheme,
-                    read_nicknames, counter, args, [],
+                string_graph = make_miniasm_string_graph(
+                    graph, read_dict, long_read_filename, scoring_scheme,
+                    read_nicknames, counter, args, anchor_segments,
                     args.existing_long_read_assembly, device=device)
         except MiniasmFailure as e:
             log.log('long-read assembly failed: %s' % e)
-    if graph is None:
+            string_graph = None
+
+    if graph is None and string_graph is None:
         quit_with_error('assembly failed: no graph produced')
+
+    rounds = max(1, args.bridge_rounds) if graph is not None else 0
+    for bridge_round in range(rounds):
+        if bridge_round > 0:
+            # Later rounds re-anchor on the MERGED graph: junctions the
+            # first round's short anchors could not reach are now
+            # flanked by long merged anchors, so the same reads yield
+            # new spanning pairs (--bridge_rounds 1 restores the
+            # reference's single round).
+            if not long_reads_available or args.no_long_read_alignment:
+                break
+            with trace.span('copy_depth'):
+                determine_copy_depth(graph)
+            anchor_segments = get_anchor_segments(graph,
+                                                  args.min_anchor_seg_len)
+            bridges = []
+            for read_name in read_names:   # round-1 alignments are stale
+                read_dict[read_name].alignments = []
+        if long_reads_available:
+            if bridge_round == 0 and string_graph is not None \
+                    and not args.no_miniasm:
+                bridges += _bridges(
+                    'miniasm', create_miniasm_bridges, graph, string_graph,
+                    anchor_segments, scoring_scheme, args.verbosity,
+                    args.min_bridge_qual, device=device)
+            if not args.no_simple_bridges:
+                # Rounds >= 2 re-run the simple bridges too: the merged
+                # graph's remaining junctions are mostly 2-in/2-out
+                # choices between long merged flanks.
+                bridges += _bridges(
+                    'simple_long_read', create_simple_long_read_bridges,
+                    graph, args.out, args.keep, args.threads, read_dict,
+                    long_read_filename, scoring_scheme, anchor_segments,
+                    device=device)
+            if not args.no_long_read_alignment:
+                with trace.span('long_read_alignment'):
+                    read_names, min_scaled_score, min_alignment_length = \
+                        align_long_reads_to_assembly_graph(
+                            graph, anchor_segments, args, read_dict,
+                            read_names, long_read_filename, device=device)
+                expected_linear_seqs = args.linear_seqs > 0
+                bridges += _bridges(
+                    'long_read', create_long_read_bridges, graph, read_dict,
+                    read_names, anchor_segments, args.verbosity,
+                    min_scaled_score, args.threads, scoring_scheme,
+                    min_alignment_length, expected_linear_seqs,
+                    args.min_bridge_qual, device=device)
+        if bridge_round > 0 and not bridges:
+            break
+        with trace.span('apply_bridges'):
+            seg_nums_used_in_bridges = graph.apply_bridges(
+                bridges, args.verbosity, args.min_bridge_qual)
+        if args.keep > 0:
+            graph.save_to_gfa(gfa_path(args.out, next(counter),
+                                       'bridges_applied'),
+                              save_seg_type_info=True,
+                              save_copy_depth_info=True, newline=True)
+        with trace.span('merge'):
+            graph.clean_up_after_bridging_1(anchor_segments,
+                                            seg_nums_used_in_bridges)
+            graph.clean_up_after_bridging_2(
+                seg_nums_used_in_bridges, args.min_component_size,
+                args.min_dead_end_size, graph, anchor_segments)
+            graph.merge_all_possible(anchor_segments, args.mode)
+        if bridge_round > 0 and not seg_nums_used_in_bridges:
+            break
+
+    if graph is not None:
+        with trace.span('final_clean'):
+            graph.final_clean()
+        if args.keep > 0:
+            graph.save_to_gfa(gfa_path(args.out, next(counter),
+                                       'final_clean'))
+        log.log('')
+        graph.print_component_table()
+    else:
+        graph = string_graph
 
     if not args.no_rotate:
         with trace.span('rotation'):
@@ -302,3 +441,184 @@ def main(arg_list=None, device=None):
     graph.save_to_gfa(final_gfa)
     graph.save_to_fasta(final_fasta, min_length=args.min_fasta_length)
     return graph
+
+
+def _bridges(kind, create, *args, **kwargs):
+    """One kind of bridge, made under its trace span and counted."""
+    with trace.span(kind + '_bridges'):
+        out = create(*args, **kwargs)
+    trace.add('bridges.' + kind, len(out))
+    return out
+
+
+def obtain_short_read_graph(args, counter):
+    """Short-read assembly graph: user-supplied GFA or FASTG, or a previous
+    run's checkpoint (the reference's resume point, unicycler.py:71-74);
+    the built-in de Bruijn assembler comes with the port's de Bruijn
+    slice."""
+    # Counter slot 001 is the raw assembler graph (written by
+    # build_best_short_read_graph); consuming it here keeps the
+    # depth_filter checkpoint at 002 on EVERY path, so the resume file
+    # a previous run wrote is the file this run looks for (the round-3
+    # fix: main numbered depth_filter 001 while resume looked for 002,
+    # so the documented resume never fired).
+    next(counter)
+    if args.short_read_graph:
+        log.log('Using provided short-read graph: ' + args.short_read_graph)
+        return AssemblyGraph(args.short_read_graph, None)
+    resume_gfa = gfa_path(args.out, 2, 'depth_filter')
+    if os.path.isfile(resume_gfa):
+        log.log('Resuming from existing graph: ' + resume_gfa)
+        return AssemblyGraph(resume_gfa, None)
+    raise _de_bruijn_slice('short-read input (-s) with no --short_read_graph '
+                           'and no %s to resume from' % resume_gfa)
+
+
+def clean_up_spades_graph(graph):
+    """Overlap removal + junction/zero-length/segment cleanup
+    (ref unicycler.py:883-900)."""
+    log.log_section_header('Cleaning graph')
+    graph.remove_all_overlaps()
+    while True:
+        graph.repair_multi_way_junctions()
+        graph.remove_unnecessary_links()
+        graph.expand_repeats()
+        if not graph.remove_zero_length_segs():
+            break
+    while True:
+        if not graph.merge_small_segments(5):
+            break
+    graph.normalise_read_depths()
+    graph.renumber_segments()
+    graph.sort_link_order()
+
+
+def get_anchor_segments(graph, min_anchor_seg_len):
+    """Anchor-contig selection (ref unicycler.py:495-570)."""
+    graph_n50 = graph.get_n_segment_length(50.0)
+    graph_n80 = graph.get_n_segment_length(80.0)
+    graph_n99 = graph.get_n_segment_length(99.0)
+
+    anchor_seg_nums = set(
+        x.number for x in graph.get_single_copy_segments()
+        if x.get_length() >= graph_n99
+        and x.get_length() >= settings.MIN_SINGLE_COPY_LENGTH)
+    for component in graph.get_connected_components():
+        if graph.is_component_complete(component):
+            anchor_seg_nums.add(component[0])
+    anchor_seg_nums |= set(x.number
+                           for x in graph.get_no_copy_depth_segments()
+                           if x.get_length() >= graph_n80)
+    anchor_seg_nums |= set(
+        x.number for x in graph.segments.values()
+        if x.get_length() >= min(graph_n50, settings.ANCHOR_N50_CAP))
+
+    # Rescue dead-end-free components with no anchors (ref :529-553).
+    for component in graph.get_connected_components():
+        dead_ends = sum(graph.dead_end_count(seg) for seg in component)
+        anchors = sum(1 for seg in component if seg in anchor_seg_nums)
+        if dead_ends > 0 or anchors > 0:
+            continue
+        new_anchor_segs = [seg for seg in component
+                           if graph.is_seg_num_single_copy(seg)]
+        if not new_anchor_segs:
+            for seg in sorted(component,
+                              key=lambda x: graph.segments[x].get_length(),
+                              reverse=True):
+                if len(graph.forward_links.get(seg, [])) == 1 or \
+                        len(graph.reverse_links.get(seg, [])) == 1:
+                    new_anchor_segs = [seg]
+                    break
+        anchor_seg_nums |= set(new_anchor_segs)
+
+    if min_anchor_seg_len is None:
+        min_anchor_seg_len = 0
+    anchor_segments = sorted(
+        [graph.segments[x] for x in anchor_seg_nums
+         if graph.segments[x].get_length() >= min_anchor_seg_len],
+        reverse=True, key=lambda x: x.get_length())
+    log.log(int_to_str(len(anchor_segments)) + ' anchor segments out of '
+            + int_to_str(len(graph.segments)) + ' total segments')
+    return anchor_segments
+
+
+def sam_references_match(sam_filename, assembly_graph):
+    """(ref unicycler.py:573-597)"""
+    ref_numbers = set()
+    with open(sam_filename, 'rt') as sam_file:
+        for line in sam_file:
+            if not line.startswith('@'):
+                break
+            if not line.startswith('@SQ'):
+                continue
+            parts = line.strip().split()
+            if len(parts) < 2:
+                continue
+            name_parts = parts[1].split(':')
+            if len(name_parts) < 2:
+                continue
+            try:
+                ref_numbers.add(int(name_parts[1]))
+            except ValueError:
+                pass
+    # EXACT match, like the reference (unicycler.py:573-597): a subset
+    # test accepted a stale SAM aligned against a DIFFERENT (merged)
+    # graph whose numbers happened to be a subset of this one's.
+    return ref_numbers == set(assembly_graph.segments.keys())
+
+
+def align_long_reads_to_assembly_graph(graph, anchor_segments, args,
+                                       read_dict, read_names,
+                                       long_read_filename, device=None):
+    """Semi-global alignment stage with SAM reuse + min-score percentile
+    (ref unicycler.py:808-881), aligning on `device` (None = CUDA)."""
+    device = resolve_device(device)
+    alignment_dir = os.path.join(args.out, 'read_alignment')
+    os.makedirs(alignment_dir, exist_ok=True)
+    alignments_sam = os.path.join(alignment_dir, 'long_read_alignments.sam')
+    scoring_scheme = AlignmentScoringScheme(args.scores)
+    min_alignment_length = settings.MIN_LONG_READ_ALIGNMENT_LENGTH
+    anchor_segment_names = set(str(x.number) for x in anchor_segments)
+
+    references = [Reference(str(num), seg.forward_sequence)
+                  for num, seg in sorted(graph.segments.items())]
+    reference_dict = {x.name: x for x in references}
+
+    if os.path.isfile(alignments_sam) and \
+            sam_references_match(alignments_sam, graph):
+        log.log('\nSAM file already exists; reusing alignments: '
+                + alignments_sam)
+        alignments = load_sam_alignments(alignments_sam, read_dict,
+                                         reference_dict, scoring_scheme)
+        for alignment in alignments:
+            read_dict[alignment.read.name].alignments.append(alignment)
+    else:
+        allowed_overlap = int(round(graph.overlap
+                                    * settings.ALLOWED_ALIGNMENT_OVERLAP))
+        semi_global_align_long_reads(
+            references, None, read_dict, read_names, long_read_filename,
+            args.threads, scoring_scheme, [args.low_score], False,
+            min_alignment_length, alignments_sam, None, allowed_overlap,
+            0, args.contamination, args.verbosity,
+            single_copy_segment_names=anchor_segment_names, device=device)
+        if args.keep < 2:
+            shutil.rmtree(alignment_dir, ignore_errors=True)
+
+    if args.contamination:
+        filtered_names, filtered_dict = [], {}
+        for read_name in read_names:
+            if not read_dict[read_name].mostly_aligns_to_contamination():
+                filtered_names.append(read_name)
+                filtered_dict[read_name] = read_dict[read_name]
+        read_names = filtered_names
+        read_dict.clear()
+        read_dict.update(filtered_dict)
+
+    contained = [x for x in read_dict.values()
+                 if x.has_one_contained_alignment()]
+    contained_scores = []
+    for read in contained:
+        contained_scores += [x.scaled_score for x in read.alignments]
+    min_scaled_score = get_percentile(contained_scores,
+                                      settings.MIN_SCALED_SCORE_PERCENTILE)
+    return read_names, min_scaled_score, min_alignment_length
