@@ -80,7 +80,7 @@ Phases (every failed check raises, so the exit code is nonzero):
      us per group of 32 wavefronts;
  10. long-read-only assembly through the command line (pipeline.main.main,
      as `python -m unicycler_tpu_torch -l reads.fastq -o out` runs it) on
-     a 2 Mbp + 100 kbp genome (both circular) with reads at 15x written
+     a 1 Mbp + 100 kbp genome (both circular) with reads at 15x written
      to a FASTQ (ASSEMBLY_CHROMOSOME, ASSEMBLY_DEPTH: the slice's 5 Mbp
      at 20x cut to the time limit): all-vs-all overlaps, OLC string
      graph, unitigs, up to 5 polish rounds on the card, rotation of the
@@ -97,10 +97,11 @@ Phases (every failed check raises, so the exit code is nonzero):
      time beside its bound; the outputs stay in chiprun_out/cli/;
  11. hybrid assembly through the command line (`python -m
      unicycler_tpu_torch --short_read_graph G.gfa -l reads.fastq -o out`)
-     on phase 7's repeat genome cut to a 2 Mbp chromosome + 100 kbp
-     plasmid: its collapsed overlap-0 GFA (copy counts as depths) is the
-     short-read graph, and reads of the slice's model at 8x
-     (HYBRID_DEPTH) over both replicons are the long reads; the JAX
+     on phase 7's repeat genome cut to a 1 Mbp chromosome
+     (HYBRID_CHROMOSOME) + 100 kbp plasmid: its collapsed overlap-0 GFA
+     (copy counts as depths) is the short-read graph, and reads of the
+     slice's model at 8x (HYBRID_DEPTH) over both replicons are the long
+     reads; the JAX
      defaults (--mode normal, 3 bridging rounds) with --keep 0: copy
      depth, cleaning, anchors, the four bridge kinds (miniasm with the
      contigs placed in the polished unitigs), long-read alignment to the
@@ -115,9 +116,31 @@ Phases (every failed check raises, so the exit code is nonzero):
      spans, each bridge kind's count and seconds, each kernel's device
      time beside the wall and the peak device memory; the outputs stay in
      chiprun_out/hybrid/;
+ 12. Unicycler's default command line (`python -m unicycler_tpu_torch -1
+     r1.fastq -2 r2.fastq -l long.fastq`) on a 200 kbp chromosome (two
+     copies of a 5,000 bp and four of a 1,300 bp repeat planted, each with
+     a 250 bp indel allele in about half of its copies) and a 30 kbp
+     plasmid, both circular (SHORTREAD_CHROMOSOME, SHORTREAD_PLASMID):
+     2 x 150 bp pairs at 40x (SHORTREAD_DEPTH; 400 +- 40 bp inserts, 0.5%
+     errors) and long reads at HYBRID_DEPTH, written to
+     chiprun_out/reads12/ (deleted after the run); the JAX defaults
+     (--mode normal, 8 k values, read correction, 3 bridging rounds) with
+     --keep 0: the de Bruijn build (correction, the k ladder, pair
+     resolution) on the host, then phase 11's pipeline and the final
+     short-read polish where the last bridging round made bridges; checks
+     phase 11's gates (every CIGAR re-tallied, >= 99% identity over >= 99%
+     of the genome with no misjoin, all copies but one resolved, the
+     plasmid one rotated circle), the de Bruijn spans (correction, each
+     k's k-mer count, pair resolution), that kernels 1 and 2 ran, and that
+     kmer_count.count_spectrum on the card over the corrected reads at
+     k = 21 and 31 equals np.unique; prints the wall, the spans, the k
+     ladder's scores and the best k, each kernel's device time beside its
+     bound, the peak device memory and the peak host memory (the process's
+     resident set, sampled through the run); the outputs stay in
+     chiprun_out/shortread/;
   8. summary (printed last): one {"kernels": [...]} line with all seven
-     kernels (each also with its launches on phase 11's path), then the
-     card's line.
+     kernels (each also with its launches on phase 11's and phase 12's
+     paths), then the card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
 without the package beside this script. Details go to
@@ -158,10 +181,17 @@ BYTES_PER_STEP_BANDED_WALK = 8
 # and then in length to keep the run inside its time limit (PERF.md
 # section 4)
 ASSEMBLY_DEPTH = 15.0
-ASSEMBLY_CHROMOSOME = 2_000_000
-# the hybrid phase's long-read depth (users run 20-100x; cut to the time
-# limit, PERF.md section 4); its chromosome is ASSEMBLY_CHROMOSOME
+ASSEMBLY_CHROMOSOME = 1_000_000
+# the hybrid phase's long-read depth (users run 20-100x) and chromosome
+# (phase 7's 5 Mbp), both cut to the time limit (PERF.md section 4)
 HYBRID_DEPTH = 8.0
+HYBRID_CHROMOSOME = 1_000_000
+# the default command line's genome (a chromosome and a plasmid with six
+# planted repeat copies, cut from 300 kbp to the time limit) and its
+# pairs' depth; its long reads are at HYBRID_DEPTH (PERF.md section 4)
+SHORTREAD_CHROMOSOME = 200_000
+SHORTREAD_PLASMID = 30_000
+SHORTREAD_DEPTH = 40.0
 
 
 def log(msg=''):
@@ -1998,7 +2028,7 @@ def phase_assembly(args, dev, report, workload=None):
     return launches, per_kernel
 
 
-def hybrid_workload(seed, genome=ASSEMBLY_CHROMOSOME, depth=HYBRID_DEPTH,
+def hybrid_workload(seed, genome=HYBRID_CHROMOSOME, depth=HYBRID_DEPTH,
                     plasmid=100_000,
                     families=((5000, 7, 250), (1300, 12, 250))):
     """Phase 11's workload: phase 7's repeat genome (repeat_replicons) cut
@@ -2065,6 +2095,107 @@ def misjoins(placements, reps, chunk=10000, slack=1000):
     return bad
 
 
+class ObservedRun(object):
+    """Observers of one command-line run: every alignment re-tallied at
+    once (the banded pairs of polish and bridging, the full-matrix pairs
+    and the semi-global read alignments of contig placement and long
+    reads to the graph; tally['bad'] counts those off their score) and
+    the circular replicons before rotation (before_rotation, with the
+    start-gene options in report[args_key]). Use as a context manager
+    around cli.main."""
+
+    def __init__(self, cli, report, args_key):
+        from unicycler_tpu_torch.align import semi_global
+        from unicycler_tpu_torch.ops import banded, pairwise
+        self.mods = (banded, pairwise, semi_global, cli)
+        self.report, self.args_key = report, args_key
+        self.tally = {'checked': 0, 'bad': 0}
+        self.before_rotation = {}
+
+    def _check(self, q_list, r_list, out, scoring):
+        for q, r, pa in zip(q_list, r_list, out):
+            if pa is not None and pa.cigar:
+                self.tally['checked'] += 1
+                self.tally['bad'] += retally(q, r, pa, scoring) != pa.score
+
+    def __enter__(self):
+        banded, pairwise, semi_global, cli = self.mods
+        self.inner = (banded.align_banded, pairwise.align_pairs,
+                      semi_global.align_reads_to_refs,
+                      cli.rotate_completed_replicons)
+        inner_align, inner_pairs, inner_refs, inner_rotate = self.inner
+
+        def observed_align(tasks, scoring, config=None, band=25,
+                           need_cigar=True, device=None):
+            out = inner_align(tasks, scoring, config=config, band=band,
+                              need_cigar=need_cigar, device=device)
+            self._check([t.q for t in tasks], [t.r for t in tasks], out,
+                        scoring)
+            return out
+
+        def observed_pairs(q_list, r_list, scoring=None, **kw):
+            out = inner_pairs(q_list, r_list, scoring=scoring, **kw)
+            self._check(q_list, r_list, out, scoring)
+            return out
+
+        def observed_refs(reads, references, scoring_scheme, **kw):
+            out = inner_refs(reads, references, scoring_scheme, **kw)
+            for read in reads:
+                for a in read.alignments:
+                    self.tally['checked'] += 1
+                    self.tally['bad'] += a.raw_score != a._pair.score
+            return out
+
+        def observed_rotate(graph, cli_args, counter):
+            for num in graph.completed_circular_replicons():
+                self.before_rotation[num] = \
+                    graph.segments[num].forward_sequence
+            self.report[self.args_key] = {
+                k: v for k, v in vars(cli_args).items()
+                if k.startswith('start_gene')}
+            return inner_rotate(graph, cli_args, counter)
+
+        banded.align_banded, pairwise.align_pairs = observed_align, \
+            observed_pairs
+        semi_global.align_reads_to_refs = observed_refs
+        cli.rotate_completed_replicons = observed_rotate
+        return self
+
+    def __exit__(self, *exc):
+        banded, pairwise, semi_global, cli = self.mods
+        (banded.align_banded, pairwise.align_pairs,
+         semi_global.align_reads_to_refs,
+         cli.rotate_completed_replicons) = self.inner
+        return False
+
+
+def circular_plasmid(graph, plasmid_seq, report, args_key, before_rotation):
+    """The circular segments (linked only to themselves) of a final graph,
+    the ones among them that are the plasmid (its length, its sequence on
+    either strand across its origin), and each such segment's rotation
+    re-checked as rotation.py says (the chromosome's start-gene search
+    would add ~11 s; phase 10 checks every replicon)."""
+    circular = sorted(n for n in graph.segments
+                      if graph.forward_links.get(n) == [n])
+    doubled = plasmid_seq + plasmid_seq
+    plasmid = [n for n in circular
+               if graph.segments[n].get_length() == len(plasmid_seq)
+               and (graph.segments[n].forward_sequence in doubled
+                    or graph.segments[n].reverse_sequence in doubled)]
+    ns = argparse.Namespace(**report.get(args_key, {}))
+    rotations = []
+    for num in plasmid:
+        if num not in before_rotation:
+            continue
+        seq = before_rotation[num]
+        want, how = expected_rotation(seq, ns)
+        rotations.append({'segment': num, 'length': len(seq), 'how': how,
+                          'ok': graph.segments[num].forward_sequence == want})
+    ok = len(plasmid) == 1 and rotations and \
+        all(r['ok'] for r in rotations) and plasmid[0] in before_rotation
+    return circular, plasmid, rotations, bool(ok)
+
+
 def phase_hybrid(args, dev, report, workload=None):
     """Hybrid assembly on a supplied short-read graph through the command
     line (`python -m unicycler_tpu_torch --short_read_graph G.gfa -l
@@ -2073,9 +2204,8 @@ def phase_hybrid(args, dev, report, workload=None):
     repeat copies, the plasmid's circle and rotation and the kernels the
     phase launched."""
     import torch
-    from unicycler_tpu_torch.align import semi_global
     from unicycler_tpu_torch.io.fastx import load_fasta
-    from unicycler_tpu_torch.ops import banded, cuda_lib, pairwise
+    from unicycler_tpu_torch.ops import cuda_lib
     from unicycler_tpu_torch.pipeline import main as cli
     from unicycler_tpu_torch.utils import trace
 
@@ -2097,68 +2227,21 @@ def phase_hybrid(args, dev, report, workload=None):
            gfa.count('S\t'), len(sim), total,
            total / sum(len(s) for s in reps), time.time() - t0))
 
-    # observe every alignment of the phase, re-tallied at once: the banded
-    # pairs (polish, bridging), the full-matrix pairs and the semi-global
-    # read alignments (contig placement, long reads to the graph)
-    tally = {'checked': 0, 'bad': 0}
-    before_rotation = {}
-    inner_align, inner_pairs = banded.align_banded, pairwise.align_pairs
-    inner_refs = semi_global.align_reads_to_refs
-    inner_rotate = cli.rotate_completed_replicons
-
-    def check(q_list, r_list, out, scoring):
-        for q, r, pa in zip(q_list, r_list, out):
-            if pa is not None and pa.cigar:
-                tally['checked'] += 1
-                tally['bad'] += retally(q, r, pa, scoring) != pa.score
-
-    def observed_align(tasks, scoring, config=None, band=25,
-                       need_cigar=True, device=None):
-        out = inner_align(tasks, scoring, config=config, band=band,
-                          need_cigar=need_cigar, device=device)
-        check([t.q for t in tasks], [t.r for t in tasks], out, scoring)
-        return out
-
-    def observed_pairs(q_list, r_list, scoring=None, **kw):
-        out = inner_pairs(q_list, r_list, scoring=scoring, **kw)
-        check(q_list, r_list, out, scoring)
-        return out
-
-    def observed_refs(reads, references, scoring_scheme, **kw):
-        out = inner_refs(reads, references, scoring_scheme, **kw)
-        for read in reads:
-            for a in read.alignments:
-                tally['checked'] += 1
-                tally['bad'] += a.raw_score != a._pair.score
-        return out
-
-    def observed_rotate(graph, cli_args, counter):
-        for num in graph.completed_circular_replicons():
-            before_rotation[num] = graph.segments[num].forward_sequence
-        report['hybrid_cli_args'] = {k: v for k, v in vars(cli_args).items()
-                                     if k.startswith('start_gene')}
-        return inner_rotate(graph, cli_args, counter)
-
     argv = ['--short_read_graph', gfa_file, '-l', reads_fq, '-o', out_dir,
             '--verbosity', '0', '--keep', '0']
     trace.reset()
     trace.enable()
     cuda_lib.TIMINGS = []
-    banded.align_banded, pairwise.align_pairs = observed_align, observed_pairs
-    semi_global.align_reads_to_refs = observed_refs
-    cli.rotate_completed_replicons = observed_rotate
     sync(dev)
     if dev.type == 'cuda':
         torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     t0 = time.time()
     try:
-        graph = cli.main(argv, device=dev)
-        sync(dev)
+        with ObservedRun(cli, report, 'hybrid_cli_args') as obs:
+            graph = cli.main(argv, device=dev)
+            sync(dev)
     finally:
-        banded.align_banded, pairwise.align_pairs = inner_align, inner_pairs
-        semi_global.align_reads_to_refs = inner_refs
-        cli.rotate_completed_replicons = inner_rotate
         os.remove(reads_fq)
         os.remove(gfa_file)
     wall = time.time() - t0
@@ -2175,8 +2258,7 @@ def phase_hybrid(args, dev, report, workload=None):
         raise AssertionError('the command line did not write both files')
 
     lens = sorted((len(s) for _, s in fasta), reverse=True)
-    circular = sorted(n for n in graph.segments
-                      if graph.forward_links.get(n) == [n])
+    tally, before_rotation = obs.tally, obs.before_rotation
     t1 = time.time()
     placements = []
     ident, covered, low, n_pieces, n_aligned = identity_to_truth(
@@ -2184,22 +2266,8 @@ def phase_hybrid(args, dev, report, workload=None):
     joins = misjoins(placements, reps)
     resolved = copies_resolved([s for _, s in fasta], reps[0], copies)
     check_s = time.time() - t1
-    doubled = reps[1] + reps[1]
-    plasmid = [n for n in circular
-               if graph.segments[n].get_length() == len(reps[1])
-               and (graph.segments[n].forward_sequence in doubled
-                    or graph.segments[n].reverse_sequence in doubled)]
-    # the plasmid's rotation re-checked (the chromosome's start-gene
-    # search would add ~11 s to the phase; phase 10 checks every replicon)
-    ns = argparse.Namespace(**report.get('hybrid_cli_args', {}))
-    rotations = []
-    for num in plasmid:
-        if num not in before_rotation:
-            continue
-        seq = before_rotation[num]
-        want, how = expected_rotation(seq, ns)
-        rotations.append({'segment': num, 'length': len(seq), 'how': how,
-                          'ok': graph.segments[num].forward_sequence == want})
+    circular, plasmid, rotations, plasmid_ok = circular_plasmid(
+        graph, reps[1], report, 'hybrid_cli_args', before_rotation)
     busy = sum(a['ms'] for a in per_kernel.values())
     kinds = {k[len('bridges.'):]: v for k, v in counters.items()
              if k.startswith('bridges.')}
@@ -2256,14 +2324,284 @@ def phase_hybrid(args, dev, report, workload=None):
     if sum(resolved) < len(copies) - 1:
         raise AssertionError('%d of %d repeat copies resolved (gate: all '
                              'but one)' % (sum(resolved), len(copies)))
-    if len(plasmid) != 1 or not rotations or \
-            not all(r['ok'] for r in rotations) or \
-            plasmid[0] not in before_rotation:
+    if not plasmid_ok:
         raise AssertionError('the plasmid is not one circular contig '
                              'rotated as rotation.py says')
     for name in ('wavetape_fwd', 'wavetape_walk', 'tape_fwd', 'tape_walk'):
         if launches[name] <= 0:
             raise AssertionError('the hybrid run did not launch %s' % name)
+    return launches, per_kernel
+
+
+def hybrid_reads_workload(seed, genome=SHORTREAD_CHROMOSOME,
+                          plasmid=SHORTREAD_PLASMID, depth=SHORTREAD_DEPTH,
+                          long_depth=HYBRID_DEPTH,
+                          families=((5000, 2, 250), (1300, 4, 250))):
+    """Phase 12's workload: a repeat genome (repeat_replicons: `genome` bp
+    chromosome with the families' copies planted, and a `plasmid` bp
+    plasmid, both circular), Illumina-style 2 x 150 bp pairs at
+    `depth`-fold coverage over both (synth.short_read_pairs: 400 +- 40 bp
+    inserts, 0.5% errors) and long reads of the slice's length and error
+    model at `long_depth` (synth.simulate_read_set). Returns ([chromosome,
+    plasmid], copies, pairs_1, pairs_2, long reads)."""
+    from unicycler_tpu_torch import synth
+    rng, chrom, pseq, _, copies, _ = repeat_replicons(seed, genome, plasmid,
+                                                      families)
+    reps = [chrom, pseq]
+    pairs_1, pairs_2 = synth.short_read_pairs(rng, reps, depth)
+    return reps, copies, pairs_1, pairs_2, synth.simulate_read_set(
+        rng, reps, long_depth)
+
+
+def write_pairs_fastq(path, pairs):
+    with open(path, 'w') as f:
+        for name, seq, qual in pairs:
+            f.write('@%s\n%s\n+\n%s\n' % (name, seq, qual))
+
+
+class HostMemorySampler(object):
+    """Peak resident set of this process while the context is open,
+    sampled from /proc/self/statm every `period` seconds by a thread
+    (ru_maxrss is the peak since the process started, which an earlier
+    phase may hold)."""
+
+    def __init__(self, period=0.05):
+        import threading
+        self.period, self.peak = period, 0
+        self.page = os.sysconf('SC_PAGE_SIZE')
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        with open('/proc/self/statm') as f:
+            self.peak = max(self.peak, int(f.read().split()[1]) * self.page)
+
+    def _run(self):
+        while not self.stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self._sample()
+        return False
+
+
+def card_kmer_counts(reads, dev, ks=(21, 31)):
+    """kmer_count.count_spectrum on the card against the host np.unique
+    (asm/correct.count_spectrum) at each k, array for array; returns
+    {k: (k-mers counted, distinct, host s, card s)} and raises on a
+    difference."""
+    import numpy as np
+    from unicycler_tpu_torch.asm import correct
+    from unicycler_tpu_torch.ops import kmer_count
+    out = {}
+    for k in ks:
+        t = time.time()
+        want_k, want_c = correct.count_spectrum(reads, k)
+        host_s = time.time() - t
+        sync(dev)
+        t = time.time()
+        got_k, got_c = kmer_count.count_spectrum(reads, k, device=dev)
+        sync(dev)
+        card_s = time.time() - t
+        if not (np.array_equal(got_k, want_k)
+                and np.array_equal(got_c, want_c)):
+            raise AssertionError('k = %d: the card k-mer count differs from '
+                                 'np.unique' % k)
+        out[k] = (int(want_c.sum()), len(want_k), host_s, card_s)
+    return out
+
+
+def phase_shortread(args, dev, report, workload=None):
+    """Unicycler's default command line (`python -m unicycler_tpu_torch -1
+    R1 -2 R2 -l long.fastq`, as pipeline.main.main runs it) on the card:
+    the de Bruijn build from the pairs, then the hybrid pipeline; checks
+    every CIGAR of the phase, assembly.fasta against the truth, the planted
+    repeat copies, the plasmid's circle and rotation, the de Bruijn spans,
+    the wave kernels' launches and the card k-mer count of the corrected
+    pairs."""
+    import resource
+    import shutil
+    import torch
+    from unicycler_tpu_torch.asm import correct
+    from unicycler_tpu_torch.io.fastx import load_fasta
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.pipeline import main as cli
+    from unicycler_tpu_torch.utils import trace
+
+    log('== phase 12: the default command line (python -m unicycler_tpu_torch '
+        '-1 r1.fastq -2 r2.fastq -l long.fastq on %s)' % dev)
+    t0 = time.time()
+    reps, copies, pairs_1, pairs_2, sim = workload or hybrid_reads_workload(
+        args.seed + 5)
+    base = os.path.dirname(args.out)
+    reads_dir = os.path.join(base, 'reads12')
+    out_dir = os.path.join(base, 'shortread')
+    os.makedirs(reads_dir, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
+    r1, r2 = os.path.join(reads_dir, 'r1.fastq'), os.path.join(reads_dir,
+                                                               'r2.fastq')
+    rl = os.path.join(reads_dir, 'long.fastq')
+    write_pairs_fastq(r1, pairs_1)
+    write_pairs_fastq(r2, pairs_2)
+    write_fastq(rl, sim)
+    genome = sum(len(s) for s in reps)
+    short_bases = sum(len(s) for _, s, _ in pairs_1 + pairs_2)
+    long_bases = sum(len(s) for _, s, _ in sim)
+    log('genome %s bp (circular), %d repeat copies; %d pairs, %d bp (%.1fx); '
+        '%d long reads, %d bp (%.1fx); set-up %.1f s'
+        % ('+'.join(str(len(s)) for s in reps), len(copies), len(pairs_1),
+           short_bases, short_bases / genome, len(sim), long_bases,
+           long_bases / genome, time.time() - t0))
+
+    # the corrected reads, kept for the card k-mer count
+    corrected = []
+    inner_correct = correct.correct_reads
+
+    def observed_correct(read_arrays, *a, **kw):
+        out = inner_correct(read_arrays, *a, **kw)
+        corrected[:] = out[0]
+        return out
+
+    argv = ['-1', r1, '-2', r2, '-l', rl, '-o', out_dir, '--verbosity', '0',
+            '--keep', '0']
+    trace.reset()
+    trace.enable()
+    cuda_lib.TIMINGS = []
+    sync(dev)
+    if dev.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    correct.correct_reads = observed_correct
+    cuda_lib.reset_launches()
+    t0 = time.time()
+    try:
+        with ObservedRun(cli, report, 'shortread_cli_args') as obs, \
+                HostMemorySampler() as host_mem:
+            graph = cli.main(argv, device=dev)
+            sync(dev)
+    finally:
+        correct.correct_reads = inner_correct
+        shutil.rmtree(reads_dir)
+    wall = time.time() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
+    trace.disable()
+    peak = torch.cuda.max_memory_allocated() if dev.type == 'cuda' else 0
+    # ru_maxrss: the process's peak in KiB since it started
+    rss_process = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    counters = trace.as_dict()['counters']
+    spans = trace.as_dict()['spans']
+    per_kernel = kernel_costs(timings)
+    fasta = load_fasta(os.path.join(out_dir, 'assembly.fasta'))
+    if not fasta or not os.path.isfile(os.path.join(out_dir,
+                                                    'assembly.gfa')):
+        raise AssertionError('the command line did not write both files')
+
+    lens = sorted((len(s) for _, s in fasta), reverse=True)
+    tally, before_rotation = obs.tally, obs.before_rotation
+    t1 = time.time()
+    placements = []
+    ident, covered, low, n_pieces, n_aligned = identity_to_truth(
+        fasta, reps, dev, placements=placements)
+    joins = misjoins(placements, reps)
+    resolved = copies_resolved([s for _, s in fasta], reps[0], copies)
+    check_s = time.time() - t1
+    circular, plasmid, rotations, plasmid_ok = circular_plasmid(
+        graph, reps[1], report, 'shortread_cli_args', before_rotation)
+    kcounts = card_kmer_counts(corrected, dev)
+    busy = sum(a['ms'] for a in per_kernel.values())
+    ladder = {int(k.split('.')[1][1:]): v for k, v in counters.items()
+              if k.startswith('debruijn.k') and k.endswith('.score')}
+    best_k = int(counters.get('debruijn.best_k', 0))
+    kinds = {k[len('bridges.'):]: v for k, v in counters.items()
+             if k.startswith('bridges.')}
+    log('default command line: %.2f s wall; %d sequences (%d circular), %d '
+        'bp, longest %s; peak device memory %.1f MiB; peak host memory '
+        'during the run %.1f MiB (the process since it started %.1f MiB)'
+        % (wall, len(lens), len(circular), sum(lens), lens[:3],
+           peak / 2 ** 20, host_mem.peak / 2 ** 20, rss_process / 1024))
+    log('spans (s): %s' % json.dumps(
+        {k: v['seconds'] for k, v in spans.items() if k.count('/') == 0}))
+    log('de Bruijn spans (s): %s' % json.dumps(
+        {k: v['seconds'] for k, v in spans.items()
+         if k.startswith('short_read_graph/')}))
+    log('k ladder scores %s; best k %d; %d repeats split by read pairs, %d '
+        'paired paths; final short-read polish %s'
+        % (json.dumps({k: ladder[k] for k in sorted(ladder)}), best_k,
+           counters.get('debruijn.pair_splits', 0),
+           counters.get('debruijn.paths', 0),
+           '%.2f s' % spans['final_polish']['seconds']
+           if 'final_polish' in spans else
+           'not run (the last bridging round made no bridge)'))
+    log('bridges by kind (count, s): %s' % json.dumps(
+        {k: (v, spans.get(k + '_bridges', {}).get('seconds'))
+         for k, v in sorted(kinds.items())}))
+    log('kernel launches: %s' % json.dumps(launches))
+    tracks = wave_launch_shapes(timings, counters)
+    log_kernel_times(per_kernel, launches)
+    log('device busy at most %.1f%% of the wall (kernel time / wall)'
+        % (100 * busy * 1e-3 / wall))
+    log('card k-mer count of the %d corrected reads, equal to np.unique: %s'
+        % (len(corrected), '; '.join(
+            'k %d: %d k-mers, %d distinct, host %.3f s, card %.3f s'
+            % ((k,) + v) for k, v in sorted(kcounts.items()))))
+    log('alignments: %d CIGARs re-tallied, %d off their score'
+        % (tally['checked'], tally['bad']))
+    log('repeat copies resolved: %d/%d; unresolved (copy, left, right): %s'
+        % (sum(resolved), len(copies), json.dumps(
+            [(i, cp.left, cp.right) for i, cp in enumerate(copies)
+             if not resolved[i]])))
+    log('plasmid: circular segment(s) %s; rotation %s'
+        % (plasmid, json.dumps(rotations)))
+    log('truth: %d pieces of 10 kb of assembly.fasta, %d aligned, identity '
+        '%.3f%%, covering %.2f%% of the genome; misjoins %s; pieces under '
+        '99%% %s (%.1f s); assembly.gfa and assembly.fasta in %s'
+        % (n_pieces, n_aligned, ident, 100 * covered, json.dumps(joins),
+           json.dumps(low), check_s, out_dir))
+    report['shortread'] = {
+        'wall_s': wall, 'pairs': len(pairs_1), 'short_bases': short_bases,
+        'long_reads': len(sim), 'long_bases': long_bases,
+        'genome': [len(s) for s in reps], 'sequences': lens,
+        'circular': circular, 'retallied': tally['checked'],
+        'tally_bad': tally['bad'], 'identity': ident, 'covered': covered,
+        'low_pieces': low, 'misjoins': joins, 'resolved': resolved,
+        'plasmid': plasmid, 'rotations': rotations, 'launches': launches,
+        'wave_tracks': tracks, 'per_kernel': per_kernel,
+        'counters': counters, 'spans': spans, 'peak_bytes': peak,
+        'host_peak_bytes': host_mem.peak, 'process_peak_kib': rss_process,
+        'kmer_counts': {str(k): v for k, v in kcounts.items()},
+        'ladder': ladder, 'best_k': best_k, 'bridges': kinds}
+    if tally['bad']:
+        raise AssertionError('%d CIGARs do not re-tally' % tally['bad'])
+    if not tally['checked']:
+        raise AssertionError('the run aligned nothing')
+    if ident < 99.0 or covered < 0.99 or joins:
+        raise AssertionError('assembly reaches %.3f%% identity over %.2f%% '
+                             'of the genome with %d misjoins (gate: 99%% '
+                             'over 99%%, none)'
+                             % (ident, 100 * covered, len(joins)))
+    if sum(resolved) < len(copies) - 1:
+        raise AssertionError('%d of %d repeat copies resolved (gate: all '
+                             'but one)' % (sum(resolved), len(copies)))
+    if not plasmid_ok:
+        raise AssertionError('the plasmid is not one circular contig '
+                             'rotated as rotation.py says')
+    want = ['short_read_graph/correct_reads',
+            'short_read_graph/pair_resolution'] + [
+        'short_read_graph/k%d/count_kmers' % k for k in sorted(ladder)]
+    missing = [name for name in want if name not in spans]
+    if len(ladder) != 8 or missing:
+        raise AssertionError('de Bruijn spans: %d k values, missing %s'
+                             % (len(ladder), missing))
+    for name in ('wavetape_fwd', 'wavetape_walk'):
+        if launches[name] <= 0:
+            raise AssertionError('the run did not launch %s' % name)
     return launches, per_kernel
 
 
@@ -2321,6 +2659,8 @@ def main():
                                             args, dev, report)
     hybrid_launches, hybrid_kernels = timed_phase(
         '11 hybrid', phase_hybrid, args, dev, report)
+    short_launches, short_kernels = timed_phase(
+        '12 default command line', phase_shortread, args, dev, report)
     assert 'jax' not in sys.modules
 
     sources = {'wavetape_fwd': ('unicycler_tpu_torch/csrc/wavetape_fwd.cu',
@@ -2392,6 +2732,11 @@ def main():
         if kname in hybrid_kernels:
             entry['hybrid_ms'] = hybrid_kernels[kname]['ms']
             entry['hybrid_bound_ms'] = hybrid_kernels[kname]['bound_ms']
+        # and on the default command line's path (phase 12)
+        entry['shortread_launches'] = short_launches.get(kname, 0)
+        if kname in short_kernels:
+            entry['shortread_ms'] = short_kernels[kname]['ms']
+            entry['shortread_bound_ms'] = short_kernels[kname]['bound_ms']
         kernels.append(entry)
     report['kernels'] = kernels
     report['kernel_rows'] = kres

@@ -633,3 +633,100 @@ def test_gpu_hybrid_cli_matches_cpu_route(tmp_path):
         got = (tmp_path / 'gpu' / name).read_bytes()
         assert got == (tmp_path / 'cpu' / name).read_bytes(), name
         assert len(got) > 90000
+
+
+def _write_pairs(tmp_path, pairs_1, pairs_2):
+    argv = []
+    for flag, pairs in (('-1', pairs_1), ('-2', pairs_2)):
+        path = tmp_path / (flag[1] + '.fastq')
+        path.write_text(''.join('@%s\n%s\n+\n%s\n' % p for p in pairs))
+        argv += [flag, str(path)]
+    return argv
+
+
+def _card_and_cpu(tmp_path, argv, min_bytes):
+    """main on the card (traced) and on the CPU route; the outputs must be
+    byte-equal. Returns the card run's spans."""
+    from unicycler_tpu_torch.pipeline.main import main
+    from unicycler_tpu_torch.utils import trace
+    dev = _cuda()
+    argv = argv + ['--verbosity', '0', '--keep', '0']
+    trace.reset()
+    trace.enable()
+    try:
+        main(argv + ['-o', str(tmp_path / 'gpu')], device=dev)
+    finally:
+        trace.disable()
+    spans = trace.as_dict()['spans']
+    main(argv + ['-o', str(tmp_path / 'cpu')], device='cpu')
+    for name in ('assembly.gfa', 'assembly.fasta'):
+        got = (tmp_path / 'gpu' / name).read_bytes()
+        assert got == (tmp_path / 'cpu' / name).read_bytes(), name
+        assert len(got) > min_bytes
+    return spans
+
+
+def test_gpu_shortread_cli_matches_cpu_route(tmp_path):
+    """Unicycler's default command line (`-1 R1 -2 R2 -l long.fastq`) on
+    the card writes the same assembly.gfa and assembly.fasta as on the
+    CPU route, on a ~30 kbp circular synth.repeat_genome (6 planted
+    copies) with 2 x 150 bp pairs at 40x (synth.short_read_pairs) and long
+    reads at 8x."""
+    _cuda()
+    from unicycler_tpu_torch import synth
+    rng = np.random.default_rng(12)
+    chrom, _, _ = synth.repeat_genome(rng, [3600] * 7,
+                                      [(1500, 2, 250), (700, 4, 0)])
+    argv = _write_pairs(tmp_path, *synth.short_read_pairs(rng, [chrom], 40))
+    sim = synth.simulate_read_set(rng, [chrom], 8, n50=9000)
+    path = tmp_path / 'long.fastq'
+    path.write_text(''.join('@%s\n%s\n+\n%s\n' % (n, s, ',' * len(s))
+                            for n, s, _ in sim))
+    spans = _card_and_cpu(tmp_path, argv + ['-l', str(path)], 25000)
+    assert 'short_read_graph/correct_reads' in spans
+    assert 'long_read_bridges' in spans
+
+
+def test_gpu_shortread_pairs_polish_matches_cpu_route(tmp_path):
+    """`-1 R1 -2 R2` alone on the 8 kbp genome of the JAX package's
+    short-read test (perfect pairs tiled at every position): the graph's
+    own bridges are applied, so the final short-read polish runs, its
+    16,000 reads aligned on the card; byte-equal to the CPU route."""
+    _cuda()
+    from unicycler_tpu_torch.pipeline.fake_reads import make_fake_short_reads
+    rng = random.Random(42)
+    genome = ''.join(rng.choice('ACGT') for _ in range(8000))
+    argv = _write_pairs(tmp_path, *make_fake_short_reads(genome))
+    spans = _card_and_cpu(tmp_path, argv + ['--min_fasta_length', '100'],
+                          7000)
+    assert 'final_polish/align_banded' in spans
+
+
+@pytest.mark.parametrize('k', [21, 31])
+def test_gpu_kmer_count_matches_np_unique(k):
+    """kmer_count.count_spectrum on the card over ~10 M k-mers of reads
+    from a 2 Mbp random genome, and count_canonical_device over keys up to
+    the top of k = 31's 62 bits (and of the 64-bit word), equal to
+    np.unique array for array."""
+    dev = _cuda()
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.asm import correct
+    from unicycler_tpu_torch.io.fastx import encode_sequence
+    from unicycler_tpu_torch.ops import kmer_count
+    rng = np.random.default_rng(k)
+    genome = synth.random_replicons(rng, [2_000_000])[0]
+    starts = rng.integers(0, len(genome) - 150, 80_000)
+    reads = [encode_sequence(genome[s:s + 150]) for s in starts.tolist()]
+    got_k, got_c = kmer_count.count_spectrum(reads, k, device=dev)
+    want_k, want_c = correct.count_spectrum(reads, k)
+    assert want_c.sum() > 9_000_000
+    assert np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)
+    assert (got_k >> np.uint64(2 * k - 2) == 3).any()
+    keys = np.concatenate([
+        rng.integers(0, 1 << 62, 1_000_000, dtype=np.uint64),
+        (np.uint64(3) << np.uint64(60)) + rng.integers(0, 1000, 50_000,
+                                                       dtype=np.uint64),
+        np.full(7, (1 << 64) - 1, np.uint64)])
+    got_k, got_c = kmer_count.count_canonical_device([keys], 31, device=dev)
+    want_k, want_c = np.unique(keys, return_counts=True)
+    assert np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)

@@ -334,3 +334,28 @@ def test_miniasm_bridge_with_several_paths_applies(tmp_path):
     used, links, seg = applied
     assert used == {6}
     assert seg.forward_sequence == 'ACGT' * 300 and links == [seg.number]
+
+
+def test_zero_depth_segment_used_in_a_bridge(tmp_path):
+    """A segment that an earlier bridging round left at depth 0 and a
+    later round uses in a bridge: the JAX package's get_usedupness_score
+    divides by that depth and stops with a ZeroDivisionError; the port
+    counts none of it used up and cleans up as for any other segment."""
+    graph_file = str(tmp_path / 'graph.gfa')
+    _write_repeat(graph_file)
+    for Graph, name in ((JGraph, 'jax'), (TGraph, 'port')):
+        g = Graph(graph_file, None)
+        seg = max(g.segments)
+        g.segments[seg].depth = 0.0
+        anchors = [g.segments[n] for n in sorted(g.segments)[:6]]
+        if name == 'jax':
+            with pytest.raises(ZeroDivisionError):
+                g.clean_up_after_bridging_2({seg}, 1000, 1000, g, anchors)
+            continue
+        assert g.get_usedupness_score(seg, g) == 0.0
+        jg = JGraph(graph_file, None)
+        for other in sorted(g.segments)[:-1]:
+            assert g.get_usedupness_score(other, jg) == \
+                jg.get_usedupness_score(other, g)
+        g.clean_up_after_bridging_2({seg}, 1000, 1000, g, anchors)
+        assert sorted(g.segments)[:6] == [a.number for a in anchors]

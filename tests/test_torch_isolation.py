@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     count, names = out.stdout.strip().split('\n')
     assert int(count) >= 20
     for name in ('__main__', 'version', 'pipeline.main', 'pipeline.rotation',
-                 'pipeline.protein_search'):
+                 'pipeline.protein_search', 'asm.debruijn', 'asm.correct',
+                 'asm.spades_compat', 'ops.kmer_count',
+                 'pipeline.fake_reads'):
         assert 'unicycler_tpu_torch.' + name in names.split(), name
 
 
@@ -68,6 +70,7 @@ def _job():
                                    'make_miniasm_string_graph',
                                    'polish_unitigs',
                                    'wavefront_batch_corridor', 'main',
+                                   'main_short_reads', 'count_spectrum',
                                    'create_simple_long_read_bridges',
                                    'create_miniasm_bridges', 'place_contigs',
                                    'align_long_reads_to_assembly_graph'])
@@ -115,6 +118,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             reads = tmp_path / 'reads.fq'
             reads.write_text('@r\nACGT\n+\nIIII\n')
             main.main(['-l', str(reads), '-o', str(tmp_path / 'out')])
+        elif entry == 'main_short_reads':
+            from unicycler_tpu_torch.pipeline import main
+            reads = tmp_path / 'reads.fq'
+            reads.write_text('@r\nACGT\n+\nIIII\n')
+            main.main(['-1', str(reads), '-2', str(reads), '-o',
+                       str(tmp_path / 'out')])
+        elif entry == 'count_spectrum':
+            from unicycler_tpu_torch.ops import kmer_count
+            kmer_count.count_spectrum([np.zeros(30, np.int8)], 21)
         elif entry == 'create_simple_long_read_bridges':
             from unicycler_tpu_torch.bridges import long_read_simple
             long_read_simple.create_simple_long_read_bridges(

@@ -5,10 +5,10 @@ A long-read-only run of both packages on the 12 kbp genome of
 tests/test_pipeline_end_to_end.py (the port on its CPU route) writes the
 same assembly.gfa and assembly.fasta, byte for byte, and the JAX test's
 identity gates hold on the port's unitigs. get_arguments gives the same
-Namespace for the same argv; short reads with no graph raise
-NotImplementedError;
-the start-gene search and the canonical rotation equal the JAX package's
-on a replicon with a planted start gene.
+Namespace for the same argv; short reads with no graph go to the de
+Bruijn assembler (unpaired reads byte-equal; missing read files stop both
+packages alike); the start-gene search and the canonical rotation equal
+the JAX package's on a replicon with a planted start gene.
 """
 
 import os
@@ -94,11 +94,35 @@ def test_cli_surface_matches_jax(tmp_path, argv):
                                   ['-s', 'c.fq', '-l', 'reads.fq']],
                          ids=['pairs', 'unpaired'])
 def test_short_read_input_raises_not_implemented(tmp_path, argv):
-    """Short reads with no graph to use or resume need the de Bruijn
-    assembler, and pairs the final short-read polish: both come with the
-    port's de Bruijn slice."""
-    with pytest.raises(NotImplementedError, match='de Bruijn slice'):
-        tmain.main(argv + ['-o', str(tmp_path / 'out')], device='cpu')
+    """Short reads with no graph to use or resume once raised
+    NotImplementedError here; they now go to the de Bruijn assembler,
+    which stops on a missing read file as the JAX package's does."""
+    errors = []
+    for run in (lambda a: jmain.main(a),
+                lambda a: tmain.main(a, device='cpu')):
+        with pytest.raises(FileNotFoundError) as info:
+            run(argv + ['-o', str(tmp_path / ('out%d' % len(errors)))])
+        errors.append(os.path.basename(info.value.filename))
+    assert errors[0] == errors[1] == argv[1]
+
+
+def test_unpaired_short_reads_match_jax(tmp_path):
+    """`-s reads.fastq` alone: the de Bruijn build on unpaired reads (no
+    pairs, so no pair resolution and no final polish), byte-equal."""
+    from unicycler_tpu.pipeline.fake_reads import make_fake_short_reads
+    genome = rand_genome(3000, 17)
+    pairs_1, pairs_2 = make_fake_short_reads(genome)
+    rs = str(tmp_path / 'reads.fastq')
+    write_fastq(rs, pairs_1 + pairs_2)
+    argv = ['-s', rs, '--verbosity', '0', '--keep', '0', '--kmers',
+            '21,41', '--min_fasta_length', '100']
+    jout, tout = str(tmp_path / 'jax'), str(tmp_path / 'torch')
+    jmain.main(argv + ['-o', jout])
+    graph = tmain.main(argv + ['-o', tout], device='cpu')
+    for name in ('assembly.gfa', 'assembly.fasta'):
+        assert _read(os.path.join(tout, name)) == \
+            _read(os.path.join(jout, name)), name
+    assert graph.segments
 
 
 _CODONS = {}

@@ -1435,10 +1435,13 @@ class AssemblyGraph(object):
         self.remove_segments(to_remove)
 
     def get_usedupness_score(self, seg_num, unbridged_graph):
+        """A segment with no depth to start with (one an earlier bridging
+        round left at 0) has none used up; the JAX package divides by its
+        depth and stops there."""
         original_depth = unbridged_graph.segments[seg_num].depth
         current_depth = self.segments[seg_num].depth
         depth_fraction_used = (original_depth - current_depth) / \
-            original_depth
+            original_depth if original_depth else 0.0
         penalty = score_function(original_depth, 4.0)
         return depth_fraction_used - (penalty / 2.0)
 

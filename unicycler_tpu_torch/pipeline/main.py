@@ -3,29 +3,32 @@ unicycler_tpu/pipeline/main.py).
 
 get_arguments is the JAX package's whole option surface, with the same
 names and defaults, so the same argv gives the same Namespace. main runs
-what the port has:
+every input mode:
 
-  * a hybrid run on a supplied short-read graph
-    (`--short_read_graph G.gfa|G.fastg [-l reads.fq] -o out`, or the
-    resume of a run whose out/002_depth_filter.gfa exists): copy depth,
-    overlap removal and cleaning, anchors, SPAdes-contig and loop-unrolling
-    bridges, the miniasm string graph with the contigs placed in it,
-    simple long-read bridges, long-read alignment to the graph and
-    long-read bridges, bridge application, clean-up and merging over the
-    bridging rounds, final_clean, rotation and the output files;
+  * short reads (`-1 R1 -2 R2 [-s U] [-l reads.fq] -o out`, Unicycler's
+    default command line): the built-in de Bruijn assembler
+    (asm/debruijn.build_best_short_read_graph: read correction, the k
+    ladder, pair resolution), or the resume of a run whose
+    out/002_depth_filter.gfa exists;
+  * a supplied short-read graph (`--short_read_graph G.gfa|G.fastg
+    [-l reads.fq] -o out`);
+  * then, with a short-read graph: copy depth, overlap removal and
+    cleaning, anchors, SPAdes-contig and loop-unrolling bridges, the
+    miniasm string graph with the contigs placed in it, simple long-read
+    bridges, long-read alignment to the graph and long-read bridges,
+    bridge application, clean-up and merging over the bridging rounds,
+    final_clean, the final short-read polish of a -1/-2 run whose last
+    bridging round made bridges, rotation and the output files;
   * a long-read-only run (`-l reads.fq -o out`): the polished unitigs of
     the long reads, rotated.
 
-Every call that aligns runs on `device`. The built-in de Bruijn assembler
-(short reads with no graph and no checkpoint to resume) and the final
-short-read polish of a -1/-2 run come with the port's de Bruijn slice and
-raise NotImplementedError.
+Every call that aligns runs on `device`.
 
 The port runs in one process: the JAX package's multi-host join
 (parallel/distributed.maybe_initialize) comes with the port's parallel
 slice and is not called here.
 
-    python -m unicycler_tpu_torch --short_read_graph G.gfa -l reads.fq -o out
+    python -m unicycler_tpu_torch -1 R1.fq -2 R2.fq -l reads.fq -o out
 
 main(arg_list=None, device=None) runs on CUDA unless the caller passes
 device='cpu' (a Python keyword, not an option).
@@ -42,7 +45,9 @@ from .. import log, settings
 from ..align.scoring import AlignmentScoringScheme
 from ..align.semi_global import (load_sam_alignments,
                                  semi_global_align_long_reads)
+from ..asm.debruijn import build_best_short_read_graph
 from ..asm.hybrid import MiniasmFailure, make_miniasm_string_graph
+from ..asm.polish import final_short_read_polish
 from ..bridges.long_read import create_long_read_bridges
 from ..bridges.long_read_simple import create_simple_long_read_bridges
 from ..bridges.loop_unroll import create_loop_unrolling_bridges
@@ -56,14 +61,6 @@ from ..misc import get_percentile, gfa_path, int_to_str, quit_with_error
 from ..utils import trace
 from ..version import __version__
 from .rotation import rotate_completed_replicons
-
-
-def _de_bruijn_slice(what):
-    return NotImplementedError(
-        '%s needs the port\'s de Bruijn slice (the built-in short-read '
-        'assembler and the final short-read polish); give an existing '
-        'short-read graph with --short_read_graph (GFA or SPAdes FASTG) '
-        'and long reads with -l' % what)
 
 
 def get_arguments(args=None):
@@ -279,19 +276,17 @@ def get_arguments(args=None):
 
 
 def main(arg_list=None, device=None):
-    """A hybrid run on a supplied short-read graph or a long-read-only run
-    (ref unicycler.py:48-189); returns the final graph. Its alignments run
-    on `device` (None = CUDA)."""
+    """A short-read, hybrid or long-read-only run (ref
+    unicycler.py:48-189); returns the final graph. Its alignments run on
+    `device` (None = CUDA)."""
     random.seed(0)   # run-to-run determinism (ref unicycler.py:52)
     args = get_arguments(arg_list)
     device = resolve_device(device)
-    if args.short1 or args.short2:
-        raise _de_bruijn_slice('short-read pairs (-1/-2)')
     os.makedirs(args.out, exist_ok=True)
     log.logger = log.Log(os.path.join(args.out, 'unicycler_tpu_torch.log'),
                          stdout_verbosity_level=args.verbosity)
 
-    short_reads_available = bool(args.unpaired)   # -1/-2 raised above
+    short_reads_available = bool(args.short1) or bool(args.unpaired)
     long_reads_available = bool(args.long)
     if not short_reads_available and not long_reads_available \
             and not args.short_read_graph:
@@ -428,6 +423,14 @@ def main(arg_list=None, device=None):
                                        'final_clean'))
         log.log('')
         graph.print_component_table()
+        # Bridge sequences built from long-read consensus carry error
+        # patches; a short-read polish pass removes them (the Pilon
+        # role of older reference releases).
+        if bridges and (args.short1 or args.short2):
+            with trace.span('final_polish'):
+                final_short_read_polish(
+                    graph, [args.short1, args.short2], scoring_scheme,
+                    device=device)
     else:
         graph = string_graph
 
@@ -452,10 +455,9 @@ def _bridges(kind, create, *args, **kwargs):
 
 
 def obtain_short_read_graph(args, counter):
-    """Short-read assembly graph: user-supplied GFA or FASTG, or a previous
-    run's checkpoint (the reference's resume point, unicycler.py:71-74);
-    the built-in de Bruijn assembler comes with the port's de Bruijn
-    slice."""
+    """Short-read assembly graph: user-supplied GFA or FASTG, a previous
+    run's checkpoint (the reference's resume point, unicycler.py:71-74),
+    or the built-in de Bruijn assembler."""
     # Counter slot 001 is the raw assembler graph (written by
     # build_best_short_read_graph); consuming it here keeps the
     # depth_filter checkpoint at 002 on EVERY path, so the resume file
@@ -470,8 +472,7 @@ def obtain_short_read_graph(args, counter):
     if os.path.isfile(resume_gfa):
         log.log('Resuming from existing graph: ' + resume_gfa)
         return AssemblyGraph(resume_gfa, None)
-    raise _de_bruijn_slice('short-read input (-s) with no --short_read_graph '
-                           'and no %s to resume from' % resume_gfa)
+    return build_best_short_read_graph(args)
 
 
 def clean_up_spades_graph(graph):

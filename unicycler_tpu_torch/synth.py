@@ -7,9 +7,13 @@ can be loaded into this package's Reference/Read objects or any other
 package's.
 """
 
+import random
 from typing import List, NamedTuple
 
 import numpy as np
+
+from .misc import reverse_complement
+from .pipeline.fake_reads import _mutate_read
 
 _BASES = np.frombuffer(b'ACGT', np.uint8)
 _COMP = np.array([3, 2, 1, 0], np.int8)
@@ -247,3 +251,45 @@ def reads_around(rng, chrom, copies, per_copy, n50=15000, min_flank=600,
             reads.append(('copy%d_read%d' % (ci, k),
                           _to_str(_mutate(rng, piece, sub, ins, dele)), ci))
     return reads
+
+
+def short_read_pairs(rng, replicons, depth, read_length=150,
+                     insert_mean=400.0, insert_sd=40.0, error_rate=0.005,
+                     indel_frac=0.1):
+    """Illumina-style read pairs of circular replicons at `depth`-fold
+    coverage (2 x read_length bases a pair). Fragments start uniformly on
+    each circle (pairs per replicon in proportion to its length), their
+    lengths are normal (insert_mean +- insert_sd, at least read_length),
+    each comes from a random strand, mate 1 reads the fragment's start and
+    mate 2 its end reverse-complemented, and both take
+    fake_reads._mutate_read's error model (substitutions and rare 1 bp
+    indels at error_rate, the read length kept). Unlike
+    fake_reads.make_fake_short_reads, which tiles a 100 bp pair at every
+    position, the pairs are drawn at random up to the depth. Returns
+    (pairs_1, pairs_2) of (name, sequence, quality)."""
+    lens = np.array([len(r) for r in replicons], np.int64)
+    n_pairs = int(round(depth * lens.sum() / (2 * read_length)))
+    per_rep = np.floor(n_pairs * lens / lens.sum()).astype(np.int64)
+    per_rep[0] += n_pairs - per_rep.sum()
+    py_rng = random.Random(int(rng.integers(0, 2 ** 31)))
+    qual = 'I' * read_length
+    pairs_1, pairs_2 = [], []
+    for rep, (seq, n) in enumerate(zip(replicons, per_rep)):
+        starts = rng.integers(0, len(seq), n)
+        sizes = np.maximum(read_length, np.rint(
+            rng.normal(insert_mean, insert_sd, n)).astype(np.int64))
+        flips = rng.integers(0, 2, n).astype(bool)
+        doubled = seq + seq[:int(sizes.max()) if n else 0]
+        for start, size, flip in zip(starts.tolist(), sizes.tolist(),
+                                     flips.tolist()):
+            fragment = doubled[start:start + size]
+            if flip:
+                fragment = reverse_complement(fragment)
+            num = len(pairs_1) + 1
+            pairs_1.append(('pair_%d/1' % num, _mutate_read(
+                fragment[:read_length], error_rate, py_rng, indel_frac),
+                qual))
+            pairs_2.append(('pair_%d/2' % num, _mutate_read(
+                reverse_complement(fragment[-read_length:]), error_rate,
+                py_rng, indel_frac), qual))
+    return pairs_1, pairs_2
