@@ -138,9 +138,26 @@ Phases (every failed check raises, so the exit code is nonzero):
      bound, the peak device memory and the peak host memory (the process's
      resident set, sampled through the run); the outputs stay in
      chiprun_out/shortread/;
+ 13. parallel: align_banded_multi over [cuda:0, cuda:0] (and over every
+     card when there are several) on 300 polish-shaped tasks at W 512, 84
+     bridging-shaped tasks at W 4096 and phase 5's zigzag tasks (retries
+     on kernels 3 and 6), each task equal to one device's
+     align_banded_tape, with each partition's tasks, rows and launches and
+     both walls; sharded_banded_align on a planted and a random batch,
+     bit-equal to one unsharded launch of kernel 3 and to its plain
+     version, and sharded_align_stats equal to numpy; every align/compat
+     function on seeded pairs on the card equal to its CPU route (two 5
+     kbp global pairs through the wave kernels); two spawned ranks on the
+     one card meeting over gloo on localhost, each running
+     distributed_align_long_reads on phase 4's genome with 400 reads (its
+     full map equal to a single-process align_reads_to_refs on the card)
+     and then the command line (`-1 -2 -l`) on the 9.8 kbp genome of
+     tests/test_distributed_pipeline.py (both assembly.fasta files
+     byte-equal to a single-process run on the card); per-rank walls,
+     local reads, allgather bytes and seconds;
   8. summary (printed last): one {"kernels": [...]} line with all seven
-     kernels (each also with its launches on phase 11's and phase 12's
-     paths), then the card's line.
+     kernels (each also with its launches on phase 11's, phase 12's and
+     phase 13's paths), then the card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
 without the package beside this script. Details go to
@@ -743,12 +760,12 @@ def retry_kernels_against_plain(rng, dev, scoring, config, results):
         del moves, args
 
 
-def _load_genome(args):
+def _load_genome(seed, n_reads):
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.io.fastx import Read, Reference
-    rng = __import__('numpy').random.default_rng(args.seed)
+    rng = __import__('numpy').random.default_rng(seed)
     reps = synth.random_replicons(rng, [5_000_000, 100_000])
-    sim = synth.simulate_reads(rng, reps, args.reads)
+    sim = synth.simulate_reads(rng, reps, n_reads)
     refs = [Reference('chromosome', reps[0]), Reference('plasmid', reps[1])]
     return refs, sim, Read
 
@@ -762,7 +779,7 @@ def phase_slice(args, dev, report):
 
     log('== phase 4: the slice (align_jobs on %s)' % dev)
     t0 = time.time()
-    refs, sim, Read = _load_genome(args)
+    refs, sim, Read = _load_genome(args.seed, args.reads)
     reads0 = [Read(n, s, None) for n, s, _ in sim]
     n_sens2 = min(20, len(sim))
     reads2 = [Read(n, s, None) for n, s, _ in sim[:n_sens2]]
@@ -2605,6 +2622,469 @@ def phase_shortread(args, dev, report, workload=None):
     return launches, per_kernel
 
 
+PARALLEL_READS = 400        # phase 13c's reads, sharded over two ranks
+PARALLEL_RANKS = 2
+
+
+def pa_key(pa):
+    """Everything a PairAlignment says, with the CIGAR as plain tuples."""
+    return (int(pa.score), int(pa.s1_start), int(pa.s1_end),
+            int(pa.s2_start), int(pa.s2_end),
+            [(int(c), str(op)) for c, op in pa.cigar],
+            int(pa.s1_len), int(pa.s2_len))
+
+
+def alignment_map(reads):
+    """read name -> sorted alignment tuples (coordinates, scores, CIGAR)."""
+    return {read.name: sorted(
+        (a.ref.name, bool(a.rev_comp), int(a.read_start_pos),
+         int(a.read_end_pos), int(a.ref_start_pos), int(a.ref_end_pos),
+         int(a.raw_score), round(float(a.scaled_score), 6),
+         ''.join(a.cigar_parts))
+        for a in read.alignments) for read in reads}
+
+
+def pipeline_genome():
+    """tests/test_distributed_pipeline.py's 9.8 kbp genome: two unique
+    parts and two copies of a 400 bp repeat."""
+    rng = random.Random(4242)
+    repeat = ''.join(rng.choice('ACGT') for _ in range(400))
+    a = ''.join(rng.choice('ACGT') for _ in range(5000))
+    b = ''.join(rng.choice('ACGT') for _ in range(4000))
+    return a + repeat + b + repeat
+
+
+def pipeline_argv(data_dir, out):
+    return ['-1', os.path.join(data_dir, 'r1.fastq'),
+            '-2', os.path.join(data_dir, 'r2.fastq'),
+            '-l', os.path.join(data_dir, 'long.fastq'),
+            '-o', out, '--verbosity', '0', '--keep', '0',
+            '--min_fasta_length', '100', '--no_rotate']
+
+
+def _rank_counts(part, t0, dev, launches, trace):
+    sync(dev)
+    d = trace.as_dict()
+    part.update({
+        'wall_s': time.time() - t0, 'launches': dict(launches),
+        'allgather_bytes': int(d['counters'].get('dist.allgather_bytes', 0)),
+        'allgather_s': sum(v['seconds'] for k, v in d['spans'].items()
+                           if k.split('/')[-1] == 'allgather')})
+
+
+def parallel_rank(rank, world, port, seed, device, data_dir, out_dir, q):
+    """One rank of phase 13c/13d in a spawned process: join the gloo group
+    on localhost, align this rank's shard of phase 4's genome with 400
+    reads (distributed_align_long_reads), then run the command line on the
+    pipeline genome; put the results on q."""
+    try:
+        os.environ.update({
+            'UNICYCLER_TPU_COORDINATOR': 'localhost:%d' % port,
+            'UNICYCLER_TPU_NUM_PROCESSES': str(world),
+            'UNICYCLER_TPU_PROCESS_ID': str(rank)})
+        os.environ.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+        sys.path.insert(0, HERE)
+        import torch
+        from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+        from unicycler_tpu_torch.ops import cuda_lib
+        from unicycler_tpu_torch.parallel import distributed as dist
+        from unicycler_tpu_torch.pipeline.main import main as cli
+        from unicycler_tpu_torch.utils import trace
+        dev = torch.device(device)
+        ctx = dist.maybe_initialize()
+        refs, sim, Read = _load_genome(seed, PARALLEL_READS)
+        reads = [Read(n, s, None) for n, s, _ in sim]
+        out = {'index': ctx.index, 'count': ctx.count}
+        trace.reset()
+        trace.enable()
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        out['local_reads'] = dist.distributed_align_long_reads(
+            reads, refs, AlignmentScoringScheme('3,-6,-5,-2'), ctx=ctx,
+            device=dev, sensitivity_level=0)
+        out['align'] = {}
+        _rank_counts(out['align'], t0, dev, cuda_lib.LAUNCHES, trace)
+        out['map'] = alignment_map(reads)
+        trace.reset()
+        cuda_lib.reset_launches()
+        t0 = time.time()
+        cli(pipeline_argv(data_dir, os.path.join(out_dir, 'p%d' % rank)),
+            device=dev)
+        out['cli'] = {}
+        _rank_counts(out['cli'], t0, dev, cuda_lib.LAUNCHES, trace)
+        with open(os.path.join(out_dir, 'p%d' % rank,
+                               'assembly.fasta')) as f:
+            out['fasta'] = f.read()
+        out['jax_imported'] = 'jax' in sys.modules
+        torch.distributed.destroy_process_group()
+        q.put((rank, out))
+    except BaseException as exc:          # surface in the parent
+        import traceback
+        q.put((rank, 'ERROR %r\n%s' % (exc, traceback.format_exc())))
+        raise
+
+
+def multi_sets(rng, seed):
+    """Phase 13a's task sets: (name, tasks, config, W)."""
+    import numpy as np
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import pairwise as pw
+    grng = np.random.default_rng(seed + 5)     # phase 5's zigzag tasks
+    zig = synth.zigzag_tasks(grng, [int(x) for x in
+                                    grng.integers(300, 1500, 24)])
+    return [('polish W512', [bo.BandedTask(*t) for t in
+                             polish_like_tasks(rng, 300)],
+             pw.SEMI_GLOBAL, 512),
+            ('bridging W4096', [bo.BandedTask(*t) for t in
+                                bridging_like_tasks(rng, 84)],
+             pw.PATH_CONFIG, 4096),
+            ('zigzag W128', [bo.BandedTask(*t) for t in zig],
+             pw.FULLY_GLOBAL, 128)]
+
+
+def compat_calls(seed):
+    """Phase 13e's calls: (name, fn(compat, scheme, device)) on seeded
+    sequences; the two 5 kbp global pairs take the banded route (the wave
+    kernels), the rest the full-matrix DP."""
+    rng = random.Random(seed)
+
+    def seq(n):
+        return ''.join(rng.choice('ACGT') for _ in range(n))
+
+    def mutate(s, rate=0.05):
+        out = []
+        for base in s:
+            r = rng.random()
+            if r < rate / 3:
+                continue
+            if r < 2 * rate / 3:
+                out.append(base + rng.choice('ACGT'))
+            elif r < rate:
+                out.append(rng.choice([b for b in 'ACGT' if b != base]))
+            else:
+                out.append(base)
+        return ''.join(out)
+
+    calls = []
+    for k in range(2):
+        s2 = seq(rng.randint(500, 800))
+        glob, big = mutate(s2), seq(5000)
+        big_q = mutate(big)
+        head = mutate(s2[:rng.randint(150, 300)])
+        path_q = head + seq(40)
+        tail = mutate(s2[-rng.randint(150, 300):])
+        inner = mutate(s2[50:300])
+        left = seq(300) + s2[:200]
+        seqs = [mutate(s2, 0.04) for _ in range(4)]
+        calls += [
+            ('fully_global %d' % k, lambda c, sc, d, a=glob, b=s2:
+             c.fully_global_alignment(a, b, sc, band_size=100, device=d)),
+            ('fully_global 5 kbp %d' % k, lambda c, sc, d, a=big_q, b=big:
+             c.fully_global_alignment(a, b, sc, device=d)),
+            ('path %d' % k, lambda c, sc, d, a=path_q, b=s2:
+             c.path_alignment(a, b, sc, band_size=120, device=d)),
+            ('semi_global_exhaustive %d' % k, lambda c, sc, d, a=inner, b=s2:
+             c.semi_global_alignment_exhaustive(a, b, sc, device=d)),
+            ('overlap %d' % k, lambda c, sc, d, a=left, b=s2:
+             c.overlap_alignment(a, b, sc, 200, device=d)),
+            ('start %d' % k, lambda c, sc, d, a=head, b=s2:
+             c.start_alignment(a, b, sc, device=d)),
+            ('end %d' % k, lambda c, sc, d, a=tail, b=s2:
+             c.end_alignment(a, b, sc, device=d)),
+            ('consensus %d' % k, lambda c, sc, d, a=seqs:
+             c.consensus_alignment(a, [], sc, bandwidth=200, device=d))]
+    calls.append(('random alignment mean', lambda c, sc, d:
+                  c.get_random_sequence_alignment_mean_and_std_dev(
+                      120, 12, sc, device=d)))
+    return calls
+
+
+def phase_parallel(args, dev, report):
+    """Phase 13: the data-parallel and multi-process layer on the card.
+    13a align_banded_multi over [cuda:0, cuda:0] (and every card when
+    there are several) on three task sets, per task equal to one device's
+    align_banded_tape; 13b sharded_banded_align and sharded_align_stats
+    on a planted and a random batch, bit-equal to one unsharded launch of
+    kernel 3 and to its plain version, the stats equal to numpy; 13c/13d
+    two spawned ranks on the one card meeting over gloo on localhost:
+    distributed_align_long_reads on phase 4's genome with 400 reads (each
+    rank's full map equal to a single-process align_reads_to_refs) and the
+    command line on the 9.8 kbp pipeline genome (both assemblies
+    byte-equal to a single-process run); 13e each align/compat function
+    on the card equal to its CPU route. Runs 13a, 13b and 13e, then the
+    ranks, then the single-process references, so no timed run shares
+    the card. Returns the launches of the phase's paths (13a-13e,
+    comparison runs excluded)."""
+    import multiprocessing as mp
+    import shutil
+    import numpy as np
+    import torch
+    from unicycler_tpu_torch.align import compat
+    from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
+    from unicycler_tpu_torch.align.semi_global import align_reads_to_refs
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops import banded_kernel as bk
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import pairwise as pw
+    from unicycler_tpu_torch.ops.encode import R_PAD
+    from unicycler_tpu_torch.parallel import mesh as pmesh
+    from unicycler_tpu_torch.pipeline.fake_reads import (
+        make_fake_long_reads, make_fake_short_reads, write_fastq as wfq)
+    from unicycler_tpu_torch.utils import trace
+
+    log('== phase 13: parallel (align_banded_multi, sharded_banded_align, '
+        'two gloo ranks on %s)' % dev)
+    t_phase = time.time()
+    par = {k: 0 for k in cuda_lib.LAUNCHES}
+    rep = report.setdefault('parallel', {})
+
+    def count(fn):
+        cuda_lib.reset_launches()
+        out = fn()
+        sync(dev)
+        for k, v in cuda_lib.LAUNCHES.items():
+            par[k] += v
+        return out, dict(cuda_lib.LAUNCHES)
+
+    # 13a: align_banded_multi against one device's tape route
+    scoring = pw.Scoring(3, -6, -5, -2)
+    meshes = [('cuda:0 x2', pmesh.get_mesh([dev, dev]))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(('every card', pmesh.get_mesh()))
+    rows = []
+    for name, tasks, config, W in multi_sets(
+            np.random.default_rng(args.seed + 13), args.seed):
+        # the reference (which also warms the route up), then the multi
+        # route, then the one-device route again for its wall
+        want = bo.align_banded_tape(tasks, scoring, config, W, True,
+                                    device=dev)
+        timed_single = []
+        for mname, mesh in meshes:
+            trace.reset()
+            trace.enable()
+            t0 = time.time()
+            got, launches = count(lambda: bo.align_banded_multi(
+                tasks, scoring, config, W, True, mesh))
+            multi_s = time.time() - t0
+            counters = trace.as_dict()['counters']
+            trace.disable()
+            if not timed_single:
+                t0 = time.time()
+                bo.align_banded_tape(tasks, scoring, config, W, True,
+                                     device=dev)
+                sync(dev)
+                timed_single.append(time.time() - t0)
+            single_s = timed_single[0]
+            bad = sum(pa_key(g) != pa_key(w) for g, w in zip(got, want))
+            parts = [{'tasks': int(counters.get('multi.p%d.tasks' % k,
+                                                0)),
+                      'rows': int(counters.get('multi.p%d.rows' % k, 0)),
+                      'launches': int(counters.get(
+                          'multi.p%d.launches' % k, 0))}
+                     for k in range(len(mesh))]
+            row = {'set': name, 'mesh': mname, 'W': W,
+                   'tasks': len(tasks), 'multi_s': multi_s,
+                   'single_s': single_s, 'launches': launches,
+                   'partitions': parts, 'differ': bad,
+                   'retries': int(counters.get('tape.retry', 0))}
+            rows.append(row)
+            log('13a %s on %s: %d tasks at W %d; partitions %s; '
+                'launches %s; %d retries; multi %.3f s, one device '
+                '%.3f s; %d tasks differ'
+                % (name, mname, len(tasks), W, json.dumps(parts),
+                   json.dumps({k: v for k, v in launches.items() if v}),
+                   row['retries'], multi_s, single_s, bad))
+            if bad:
+                raise AssertionError('13a: align_banded_multi differs '
+                                     'from align_banded_tape on %d '
+                                     'tasks (%s)' % (bad, name))
+            if name.startswith('zigzag') and (
+                    launches['banded'] <= 0
+                    or launches['banded_walk'] <= 0):
+                raise AssertionError('13a: the zigzag set did not '
+                                     'retry on kernels 3 and 6')
+    rep['multi'] = rows
+
+    # 13b: sharded_banded_align and sharded_align_stats
+    config = pw.SEMI_GLOBAL
+    W, n_pad, m_pad, batch = 128, 512, 1024, 256
+    srows = []
+    for planted in (True, False):
+        brng = np.random.RandomState(args.seed + 13)
+        qb = brng.randint(0, 4, (batch, n_pad)).astype(np.int8)
+        r_ext = np.full((batch, m_pad + 2 * W), R_PAD, np.int8)
+        r_ext[:, W:W + m_pad] = brng.randint(0, 4, (batch, m_pad))
+        c = np.tile(np.arange(n_pad + 1, dtype=np.int32) - W // 2,
+                    (batch, 1))
+        n_acts = np.full(batch, n_pad, np.int32)
+        m_acts = np.full(batch, m_pad, np.int32)
+        if planted:
+            qb[:] = r_ext[:, W:W + n_pad]
+        else:
+            n_acts[:] = brng.randint(n_pad // 2, n_pad + 1, batch)
+            m_acts[:] = brng.randint(m_pad // 2, m_pad + 1, batch)
+        host = (qb, r_ext, c, n_acts, m_acts)
+        mesh = meshes[0][1]
+        t0 = time.time()
+        got, _ = count(lambda: pmesh.sharded_banded_align(
+            mesh, *host, scoring=scoring, config=config, W=W,
+            need_moves=True))
+        sharded_s = time.time() - t0
+        up = [torch.from_numpy(x).to(dev) for x in host]
+        one = bk.banded_batch_cuda(*up, scoring, config, W, True)
+        plain = bk.banded_batch_plain(*up, scoring, config, W, True)
+        n_t = up[3]
+        for label, ref in (('one launch', one), ('plain', plain)):
+            for i, what in enumerate(('score', 'end_i', 'end_j')):
+                exact('13b %s vs %s' % (what, label), got[i], ref[i])
+            exact('13b moves vs %s' % label,
+                  bk.moves_rows_real(got[3], n_t),
+                  bk.moves_rows_real(ref[3], n_t))
+        scores = got[0].cpu().numpy()
+        stats = pmesh.sharded_align_stats(mesh, got[0])
+        want_stats = {'aligned': int((scores > 0).sum()),
+                      'score_sum': int(scores.astype(np.int64).sum()),
+                      'score_max': int(scores.max())}
+        if stats != want_stats:
+            raise AssertionError('13b stats %s != numpy %s'
+                                 % (stats, want_stats))
+        if planted and not (scores == 3 * n_pad).all():
+            raise AssertionError('13b: a planted task did not score '
+                                 'match x n')
+        srows.append({'planted': planted, 'batch': batch, 'W': W,
+                      'stats': stats, 'sharded_s': sharded_s})
+        log('13b %s batch of %d (n %d, m %d, W %d) over %d entries: '
+            'bit-equal to one launch and to the plain version; stats '
+            '%s equal to numpy; %.3f s'
+            % ('planted' if planted else 'random', batch, n_pad, m_pad,
+               W, len(mesh), json.dumps(stats), sharded_s))
+        del up, one, plain, got
+    rep['sharded'] = srows
+
+    # 13e: the compat surface on the card against its CPU route
+    scheme = AlignmentScoringScheme('3,-6,-5,-2')
+    crows = []
+    for name, call in compat_calls(args.seed + 13):
+        t0 = time.time()
+        got, _ = count(lambda: call(compat, scheme, dev))
+        card_s = time.time() - t0
+        want = call(compat, scheme, 'cpu')
+        crows.append({'call': name, 'equal': got == want,
+                      'card_s': card_s})
+        if got != want:
+            raise AssertionError('13e %s: card %r != CPU route %r'
+                                 % (name, got, want))
+    rep['compat'] = crows
+    log('13e compat: %d calls, each equal to its CPU route (%s)'
+        % (len(crows), ', '.join('%s %.2f s' % (r['call'], r['card_s'])
+                                 for r in crows)))
+
+    # 13c/13d: two ranks on the card; the single-process references run
+    # after them, so no wall below shares the card with another run
+    base = os.path.dirname(args.out)
+    data_dir = os.path.join(base, 'parallel_reads')
+    out_dir = os.path.join(base, 'parallel')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(data_dir, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
+    genome = pipeline_genome()
+    p1, p2 = make_fake_short_reads(genome)
+    wfq(os.path.join(data_dir, 'r1.fastq'), p1)
+    wfq(os.path.join(data_dir, 'r2.fastq'), p2)
+    wfq(os.path.join(data_dir, 'long.fastq'),
+        make_fake_long_reads(genome, read_length=3000, step=500))
+    sock = __import__('socket').socket()
+    sock.bind(('localhost', 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    ctx = mp.get_context('spawn')
+    q = ctx.Queue()
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, PARALLEL_RANKS, port, args.seed,
+                               str(dev), data_dir, out_dir, q))
+             for r in range(PARALLEL_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        outs = {}
+        for _ in procs:
+            rank, out = q.get(timeout=600)
+            if isinstance(out, str):
+                raise AssertionError('rank %d failed: %s' % (rank, out))
+            outs[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    refs, sim, Read = _load_genome(args.seed, PARALLEL_READS)
+    reads = [Read(n, s, None) for n, s, _ in sim]
+    t0 = time.time()
+    align_reads_to_refs(reads, refs, AlignmentScoringScheme('3,-6,-5,-2'),
+                        sensitivity_level=0, device=dev)
+    single_align_s = time.time() - t0
+    want_map = alignment_map(reads)
+    single_out = os.path.join(out_dir, 'single')
+    from unicycler_tpu_torch.pipeline.main import main as cli
+    t0 = time.time()
+    cli(pipeline_argv(data_dir, single_out), device=dev)
+    single_cli_s = time.time() - t0
+    shutil.rmtree(data_dir, ignore_errors=True)
+    with open(os.path.join(single_out, 'assembly.fasta')) as f:
+        want_fasta = f.read()
+    ranks = []
+    for rank in range(PARALLEL_RANKS):
+        out = outs[rank]
+        if (out['index'], out['count']) != (rank, PARALLEL_RANKS) \
+                or out['jax_imported']:
+            raise AssertionError('rank %d: context %s, jax imported %s'
+                                 % (rank, (out['index'], out['count']),
+                                    out['jax_imported']))
+        differ = sorted(n for n in want_map
+                        if out['map'].get(n) != want_map[n])
+        if differ or set(out['map']) != set(want_map):
+            raise AssertionError('13c rank %d: %d reads differ from the '
+                                 'single-process map (%s)'
+                                 % (rank, len(differ), differ[:5]))
+        if out['fasta'] != want_fasta:
+            raise AssertionError('13d rank %d: assembly.fasta differs from '
+                                 'the single-process run' % rank)
+        for part in ('align', 'cli'):
+            for k, v in out[part]['launches'].items():
+                par[k] += v
+        ranks.append({'rank': rank, 'local_reads': out['local_reads'],
+                      'align': out['align'], 'cli': out['cli']})
+        log('13c rank %d: %d local reads of %d, %.2f s wall, allgather %d '
+            'bytes in %.3f s, launches %s; full map equal to the single '
+            'process (%.2f s)'
+            % (rank, out['local_reads'], len(reads), out['align']['wall_s'],
+               out['align']['allgather_bytes'], out['align']['allgather_s'],
+               json.dumps({k: v for k, v in out['align']['launches'].items()
+                           if v}), single_align_s))
+        log('13d rank %d: command line %.2f s wall, allgather %d bytes in '
+            '%.3f s, launches %s; assembly.fasta (%d bytes) byte-equal to '
+            'the other rank and the single process (%.2f s)'
+            % (rank, out['cli']['wall_s'], out['cli']['allgather_bytes'],
+               out['cli']['allgather_s'],
+               json.dumps({k: v for k, v in out['cli']['launches'].items()
+                           if v}), len(out['fasta']), single_cli_s))
+    n_aln = sum(len(v) for v in want_map.values())
+    if n_aln < len(reads):
+        raise AssertionError('13c: only %d alignments for %d reads'
+                             % (n_aln, len(reads)))
+    rep.update({'ranks': ranks, 'single_align_s': single_align_s,
+                'single_cli_s': single_cli_s, 'alignments': n_aln,
+                'launches': par, 'seconds': time.time() - t_phase})
+    for k, v in par.items():
+        if k != 'wavefront_fwd' and v <= 0:
+            raise AssertionError('phase 13 did not launch %s' % k)
+    log('phase 13 launches (13a-13e, comparison runs excluded): %s; %.1f s'
+        % (json.dumps(par), time.time() - t_phase))
+    return par
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -2661,6 +3141,8 @@ def main():
         '11 hybrid', phase_hybrid, args, dev, report)
     short_launches, short_kernels = timed_phase(
         '12 default command line', phase_shortread, args, dev, report)
+    parallel_launches = timed_phase('13 parallel', phase_parallel, args,
+                                    dev, report)
     assert 'jax' not in sys.modules
 
     sources = {'wavetape_fwd': ('unicycler_tpu_torch/csrc/wavetape_fwd.cu',
@@ -2737,6 +3219,9 @@ def main():
         if kname in short_kernels:
             entry['shortread_ms'] = short_kernels[kname]['ms']
             entry['shortread_bound_ms'] = short_kernels[kname]['bound_ms']
+        # and on the parallel paths (phase 13: the parent's mesh routes
+        # and compat calls plus both ranks' alignment and command line)
+        entry['parallel_launches'] = parallel_launches.get(kname, 0)
         kernels.append(entry)
     report['kernels'] = kernels
     report['kernel_rows'] = kres

@@ -730,3 +730,39 @@ def test_gpu_kmer_count_matches_np_unique(k):
     got_k, got_c = kmer_count.count_canonical_device([keys], 31, device=dev)
     want_k, want_c = np.unique(keys, return_counts=True)
     assert np.array_equal(got_k, want_k) and np.array_equal(got_c, want_c)
+
+
+def _multi_against_single(devices, W, cfg, tasks):
+    from unicycler_tpu_torch.ops import banded as bo
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    bt = [bo.BandedTask(*t) for t in tasks]
+    args = (Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), W, True)
+    got = bo.align_banded_multi(bt, *args, devices)
+    want = bo.align_banded_tape(bt, *args, device=devices[0])
+    return [pa_key(p) for p in got], [pa_key(p) for p in want]
+
+
+@pytest.mark.parametrize('W', [512, 4096])
+@pytest.mark.parametrize('cfg', ['semi', 'global'])
+def test_gpu_align_banded_multi_on_one_card_twice(cfg, W):
+    """A mesh naming the one card twice: two partitions queued on it, per
+    task equal to one device's tape route (retries included)."""
+    dev = torch.device('cuda', _cuda().index or 0)
+    tasks = tasks_np(12, [60, 120, 200, 330, 90, 170, 250, 140], True) \
+        + zigzag_tasks(5, 8)
+    got, want = _multi_against_single([dev, dev], W, cfg, tasks)
+    assert got == want
+
+
+@pytest.mark.parametrize('W', [512, 4096])
+def test_gpu_align_banded_multi_over_every_card(W):
+    """One partition a card: each launch (and its occupancy and cluster
+    queries) must run on its tensors' card, not the current one."""
+    _cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip('needs two or more CUDA devices')
+    devices = [torch.device('cuda', i) for i in range(n)]
+    tasks = tasks_np(13, [80, 160, 240, 320, 400, 120, 200, 280] * n, True)
+    got, want = _multi_against_single(devices, W, 'semi', tasks)
+    assert got == want

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ('__main__', 'version', 'pipeline.main', 'pipeline.rotation',
                  'pipeline.protein_search', 'asm.debruijn', 'asm.correct',
                  'asm.spades_compat', 'ops.kmer_count',
-                 'pipeline.fake_reads'):
+                 'pipeline.fake_reads', 'parallel', 'parallel.mesh',
+                 'parallel.distributed', 'align.compat'):
         assert 'unicycler_tpu_torch.' + name in names.split(), name
 
 
@@ -73,7 +74,10 @@ def _job():
                                    'main_short_reads', 'count_spectrum',
                                    'create_simple_long_read_bridges',
                                    'create_miniasm_bridges', 'place_contigs',
-                                   'align_long_reads_to_assembly_graph'])
+                                   'align_long_reads_to_assembly_graph',
+                                   'get_mesh', 'align_banded_multi',
+                                   'distributed_align_long_reads',
+                                   'compat_fully_global_alignment'])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this host has a CUDA device')
@@ -142,6 +146,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
             args = main.get_arguments(['-o', str(tmp_path / 'out')])
             main.align_long_reads_to_assembly_graph(None, [], args, {}, [],
                                                     None)
+        elif entry == 'get_mesh':
+            from unicycler_tpu_torch.parallel import mesh
+            mesh.get_mesh()
+        elif entry == 'align_banded_multi':
+            q, r, cr, cf = tasks_np(1, [50], False)[0]
+            banded.align_banded_multi([banded.BandedTask(q, r, cr, cf)],
+                                      Scoring(*SCORING_T),
+                                      pairwise.SEMI_GLOBAL, 128, True,
+                                      ['cuda', 'cuda'])
+        elif entry == 'distributed_align_long_reads':
+            from unicycler_tpu_torch.parallel import distributed
+            job = _job()
+            distributed.distributed_align_long_reads(
+                job.reads, job.references, job.scoring_scheme,
+                ctx=distributed.DistContext(0, 1))
+        elif entry == 'compat_fully_global_alignment':
+            from unicycler_tpu_torch.align import compat
+            compat.fully_global_alignment('ACGTACGT', 'ACGAACGT',
+                                          _job().scoring_scheme)
         elif entry == 'wavefront_batch_corridor':
             q, r, _, _ = tasks_np(1, [50], False)[0]
             wavefront.wavefront_batch(q[None], r[None], [-60], [len(q)],

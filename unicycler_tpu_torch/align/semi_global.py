@@ -615,13 +615,26 @@ def semi_global_align_long_reads(references, ref_fasta, read_dict, read_names,
                                  'seed_debug')
 
     reads_to_align = [read_dict[x] for x in read_names]
-    align_reads_to_refs(reads_to_align, references, scoring_scheme,
-                        sensitivity_level=sensitivity_level,
-                        keep_bad=keep_bad,
-                        low_score_threshold=low_score_threshold,
-                        min_align_length=min_align_length,
-                        allowed_overlap=allowed_overlap,
-                        debug_dir=debug_dir, device=dev)
+    from ..parallel import distributed as dist
+    ctx = dist.get_context()
+    if ctx.active:
+        # several processes: each aligns its read shard on its own card
+        # and the results allgather, so every process holds the full map
+        # (the replicated graph stages need it; parallel/distributed.py)
+        dist.distributed_align_long_reads(
+            reads_to_align, references, scoring_scheme, ctx=ctx,
+            device=dev, sensitivity_level=sensitivity_level,
+            keep_bad=keep_bad, low_score_threshold=low_score_threshold,
+            min_align_length=min_align_length,
+            allowed_overlap=allowed_overlap, debug_dir=debug_dir)
+    else:
+        align_reads_to_refs(reads_to_align, references, scoring_scheme,
+                            sensitivity_level=sensitivity_level,
+                            keep_bad=keep_bad,
+                            low_score_threshold=low_score_threshold,
+                            min_align_length=min_align_length,
+                            allowed_overlap=allowed_overlap,
+                            debug_dir=debug_dir, device=dev)
 
     if verbosity > 0:
         print_alignment_summary_table(read_dict, verbosity)

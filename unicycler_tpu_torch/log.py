@@ -2,9 +2,9 @@
 
 Capability parity with the reference's global Log singleton
 (ref unicycler/log.py:25-120): section headers with timestamps, verbosity
-gating 0-3 and optional ANSI colour; the port keeps only the writers its
-pipeline calls. The implementation is original and simpler (no tput
-probing; colour decided from isatty).
+gating 0-3 and optional ANSI colour, with the JAX package's writers. The
+implementation is original and simpler (no tput probing; colour decided
+from isatty).
 """
 
 import datetime
@@ -68,6 +68,15 @@ def log_section_header(message, verbosity=1):
         + END_FORMATTING, verbosity)
 
 
+def log_explanation(text, verbosity=1, extra_empty_lines_after=1):
+    """Dim word-wrapped explanation paragraph (ref log.py:123-143)."""
+    width = min(shutil.get_terminal_size().columns, 100) - 1
+    for line in textwrap.wrap(text, width):
+        log(DIM + line + END_FORMATTING, verbosity)
+    for _ in range(extra_empty_lines_after):
+        log('', verbosity)
+
+
 def log_number_list(numbers, verbosity=1):
     """Wrapped comma-separated number list (ref log.py:146)."""
     width = min(shutil.get_terminal_size().columns, 100) - 1
@@ -75,3 +84,10 @@ def log_number_list(numbers, verbosity=1):
     for line in textwrap.wrap(text, width, initial_indent='  ',
                               subsequent_indent='  '):
         log(line, verbosity)
+
+
+def log_progress(fraction, message, verbosity=1):
+    """Carriage-return progress line (ref log.py:103-120)."""
+    if verbosity <= logger.stdout_verbosity_level:
+        sys.stdout.write('\r' + message + ' ' + ('%.1f' % (100.0 * fraction)) + '%')
+        sys.stdout.flush()

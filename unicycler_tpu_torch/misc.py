@@ -1,13 +1,18 @@
-"""Host helpers of the long-read alignment path (a subset of
-unicycler_tpu/misc.py: only what this package calls)."""
+"""General helpers: sequences, numbers, ranges, files, ANSI formatting,
+tables (counterpart of unicycler_tpu/misc.py, with the same behaviour)."""
 
 
 import gzip
 import math
 import os
+import random
+import re
 import textwrap
 
+import numpy as np
+
 from . import settings
+from .log import BOLD, DIM, END_FORMATTING, GREEN, RED, UNDERLINE, YELLOW
 
 
 _COMP_TABLE = bytes.maketrans(
@@ -18,6 +23,24 @@ _COMP_TABLE = bytes.maketrans(
 def reverse_complement(seq: str) -> str:
     """IUPAC-aware reverse complement (semantics of ref misc.py:151-166)."""
     return seq.translate(_COMP_TABLE)[::-1]
+
+
+def complement_base(base: str) -> str:
+    return base.translate(_COMP_TABLE)
+
+
+def get_random_base() -> str:
+    return 'ACGT'[random.randint(0, 3)]
+
+
+def get_random_sequence(length: int) -> str:
+    return ''.join(get_random_base() for _ in range(length))
+
+
+def np_revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse-complement an int8 base-code array (A0 C1 G2 T3 N4)."""
+    comp = np.array([3, 2, 1, 0, 4], dtype=codes.dtype)
+    return comp[codes[::-1]]
 
 
 def add_line_breaks_to_sequence(sequence: str, line_length: int = 0) -> str:
@@ -88,6 +111,10 @@ def get_num_agreement(num_1, num_2) -> float:
     if num_1 * num_2 < 0.0:
         return 0.0
     return min(num_1, num_2) / max(num_1, num_2)
+
+
+def round_to_nearest_odd(num: float) -> int:
+    return 2 * round((num - 1) / 2) + 1
 
 
 def float_to_str(num, decimals, max_num=0):
@@ -165,6 +192,14 @@ def range_overlap_size(test_range, other_ranges):
                for other in simplify_ranges(other_ranges))
 
 
+def ranges_overlap(ranges_1, ranges_2):
+    return any(range_overlap(r1, r2) > 0 for r1 in ranges_1 for r2 in ranges_2)
+
+
+def total_range_length(ranges):
+    return sum(b - a for a, b in simplify_ranges(ranges))
+
+
 def get_compression_type(filename):
     magic = {'gz': b'\x1f\x8b', 'bz2': b'\x42\x5a\x68', 'zip': b'\x50\x4b\x03\x04'}
     with open(filename, 'rb') as f:
@@ -209,6 +244,123 @@ def gfa_path(out_dir, file_num, name):
 def quit_with_error(message):
     """Fatal-error exit path (ref misc.py:106)."""
     raise SystemExit('Error: ' + message)
+
+
+# ---------------------------------------------------------------------------
+# ANSI formatting (parity with ref misc.py:650-738)
+# ---------------------------------------------------------------------------
+
+MAGENTA = '\033[35m'
+
+
+def colour(text, text_colour):
+    bold_text = 'bold' in text_colour
+    text_colour = text_colour.replace('bold', '')
+    underline_text = 'underline' in text_colour
+    text_colour = text_colour.replace('underline', '')
+    text_colour = text_colour.replace('_', '').replace(' ', '').lower()
+    if 'red' in text_colour:
+        out = RED
+    elif 'green' in text_colour:
+        out = GREEN
+    elif 'yellow' in text_colour:
+        out = YELLOW
+    elif 'dim' in text_colour:
+        out = DIM
+    else:
+        out = ''
+    if bold_text:
+        out += BOLD
+    if underline_text:
+        out += UNDERLINE
+    if not out:
+        return text
+    return out + text + END_FORMATTING
+
+
+def green(text):
+    return GREEN + text + END_FORMATTING
+
+
+def bold_green(text):
+    return GREEN + BOLD + text + END_FORMATTING
+
+
+def red(text):
+    return RED + text + END_FORMATTING
+
+
+def magenta(text):
+    return MAGENTA + text + END_FORMATTING
+
+
+def bold_red(text):
+    return RED + BOLD + text + END_FORMATTING
+
+
+def bold(text):
+    return BOLD + text + END_FORMATTING
+
+
+def bold_underline(text):
+    return BOLD + UNDERLINE + text + END_FORMATTING
+
+
+def underline(text):
+    return UNDERLINE + text + END_FORMATTING
+
+
+def dim(text):
+    return DIM + text + END_FORMATTING
+
+
+def dim_underline(text):
+    return DIM + UNDERLINE + text + END_FORMATTING
+
+
+def bold_yellow(text):
+    return YELLOW + BOLD + text + END_FORMATTING
+
+
+def bold_yellow_underline(text):
+    return YELLOW + BOLD + UNDERLINE + text + END_FORMATTING
+
+
+def bold_red_underline(text):
+    return RED + BOLD + UNDERLINE + text + END_FORMATTING
+
+
+def remove_formatting(text):
+    return re.sub('\033.*?m', '', text)
+
+
+def len_without_format(text):
+    try:
+        return len(remove_formatting(text))
+    except TypeError:
+        return len(str(text))
+
+
+# SPAdes interop parsers (semantics of ref misc.py:824-855).
+
+def spades_version_from_spades_output(spades_output):
+    for pattern in (r'v(\d+\.\d+\.\d+)', r'v\.(\d+\.\d+\.\d+)'):
+        m = re.search(pattern, spades_output)
+        if m:
+            return m.group(1)
+    m = re.search(r'\d+\.\d+\.\d+', spades_output)
+    return m.group() if m else ''
+
+
+def spades_status_from_version(version):
+    major_version = int(version.split('.')[0])
+    if major_version < 3:
+        return 'too old'
+    if major_version >= 5:
+        return 'too new'
+    if major_version == 3 and int(version.split('.')[1]) < 14:
+        return 'too old'
+    return 'good'
 
 
 def print_table(table, alignments='', max_col_width=30, col_separation=2,

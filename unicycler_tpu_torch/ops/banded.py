@@ -16,6 +16,9 @@ columns j in [c[i], c[i]+W). Two routes, chosen by the device:
     (ops/traceback_kernels.py).
   * CPU: the JAX package's CPU route — the bucketed row DP, whose DP is
     the plain twin of the XLA _banded_single, decoded on the host.
+  * A mesh (parallel/mesh.set_default_mesh, a list of devices):
+    align_banded_multi partitions a call's tasks over the devices by row
+    count, each partition taking its device's route.
 
 The TPU package's transport machinery (two-buffer and mega uploads,
 sparse record compression, the two-phase score-then-walk fetch, the VMEM
@@ -287,19 +290,43 @@ def _buckets(task_list, idxs):
     return buckets
 
 
+def _mesh_for(dev):
+    """The default mesh (parallel/mesh.set_default_mesh) when it has more
+    than one entry, else None. A mesh serves calls on its own device type;
+    a call on another type raises rather than running off the mesh."""
+    from ..parallel.mesh import get_default_mesh
+    mesh = get_default_mesh()
+    if mesh is not None and mesh[0].type != dev.type:
+        raise ValueError('a mesh of %s devices is installed; this call asks '
+                         'for %s' % (mesh[0].type, dev))
+    return mesh if mesh is not None and len(mesh) > 1 else None
+
+
 def align_banded(tasks: List[BandedTask], scoring, config=SEMI_GLOBAL,
                  band: int = 25, need_cigar: bool = True, device=None
                  ) -> List[PairAlignment]:
     """Align a list of banded tasks. On CUDA (the default device) the whole
     call rides tape launches (wave or row tapes by W); on the CPU it takes
-    the bucketed row DP (the JAX package's CPU route)."""
+    the bucketed row DP (the JAX package's CPU route). With a mesh of more
+    than one device installed (parallel/mesh.set_default_mesh) the call
+    partitions its tasks over the mesh (align_banded_multi)."""
     if not tasks:
         return []
     dev = resolve_device(device)
     W = band_width(band)
+    mesh = _mesh_for(dev)
+    if mesh is not None:
+        return align_banded_multi(tasks, scoring, config, W, need_cigar,
+                                  mesh)
     if dev.type == 'cuda':
         return align_banded_tape(tasks, scoring, config, W, need_cigar,
                                  device=dev)
+    return _align_buckets(tasks, scoring, config, W, need_cigar)
+
+
+def _align_buckets(tasks, scoring, config, W, need_cigar):
+    """The CPU route: tasks bucketed by padded (query, reference) length,
+    one banded DP a bucket, decoded on the host."""
     from .banded_kernel import banded_batch
     results: List[PairAlignment] = [None] * len(tasks)
     for (n_pad, m_pad), idxs in _buckets(tasks, range(len(tasks))).items():
@@ -318,6 +345,52 @@ def align_banded(tasks: List[BandedTask], scoring, config=SEMI_GLOBAL,
         _emit_results(results, idxs, score.numpy(), end_i.numpy(),
                       end_j.numpy(), moves, cb, n_acts, m_acts, need_cigar,
                       config)
+    return results
+
+
+def align_banded_multi(tasks, scoring, config, W, need_cigar, devices):
+    """Data-parallel alignment over several devices: tasks are partitioned
+    by row count (greedy, longest first, onto the least-loaded device;
+    ties to the first). On CUDA each partition is one _AsyncAlign on its
+    own device, and all are dispatched before any is collected, so the
+    devices run concurrently; each partition's band-escape retries run on
+    its own device. On the CPU each partition takes the bucketed row DP.
+    A device may appear more than once (its partitions then run one after
+    another). Per task the results equal the single-device route's.
+
+    Counters (CUDA): multi.p<k>.tasks, .rows (the partition's DP rows)
+    and .launches (its forward launches, each with its walk)."""
+    devices = [resolve_device(d) for d in devices]
+    results = [None] * len(tasks)
+    live = _filter_degenerate(tasks, results)
+    if not live:
+        return results
+    # greedy balance by DP row count
+    order = sorted(live, key=lambda i: -len(tasks[i].q))
+    loads = [0] * len(devices)
+    parts = [[] for _ in devices]
+    for i in order:
+        d = loads.index(min(loads))
+        parts[d].append(i)
+        loads[d] += len(tasks[i].q)
+    from ..utils import trace
+    collects = []
+    for k, (dev, idxs) in enumerate(zip(devices, parts)):
+        if not idxs:
+            continue
+        sub = [tasks[i] for i in idxs]
+        if dev.type == 'cuda':
+            handle = _AsyncAlign(sub, scoring, config, W, need_cigar, dev)
+            trace.add('multi.p%d.tasks' % k, len(idxs))
+            trace.add('multi.p%d.rows' % k, loads[k])
+            trace.add('multi.p%d.launches' % k, len(handle._pending))
+            collects.append((idxs, handle.collect))
+        else:
+            collects.append((idxs, lambda sub=sub: _align_buckets(
+                sub, scoring, config, W, need_cigar)))
+    for idxs, collect in collects:
+        for i, pa in zip(idxs, collect()):
+            results[i] = pa
     return results
 
 
@@ -613,11 +686,11 @@ def align_banded_async(tasks, scoring, config=SEMI_GLOBAL, band=25,
                        need_cigar=True, device=None):
     """align_banded split into dispatch-now / collect-later. On CUDA the
     kernels are queued immediately and the host is free until .collect();
-    the CPU route computes at collect time."""
+    the CPU route and a multi-device mesh compute at collect time."""
     if not tasks:
         return _SyncAlign(lambda: [])
     dev = resolve_device(device)
-    if dev.type == 'cuda':
+    if dev.type == 'cuda' and _mesh_for(dev) is None:
         return _AsyncAlign(tasks, scoring, config, band_width(band),
                            need_cigar, dev)
     return _SyncAlign(lambda: align_banded(tasks, scoring, config=config,

@@ -175,25 +175,35 @@ def lib():
 
 
 class timed(object):
-    """Context manager around one launch: records CUDA events into TIMINGS
-    when timing is on; `outputs` is kept for work counts read later."""
+    """Context manager around one launch. It makes `device` the CUDA
+    runtime's current device for the launch (the launch functions,
+    cudaFuncSetAttribute and the occupancy queries act on the current
+    device, so a launch on a tensor of cuda:1 must run with cuda:1
+    current), and records CUDA events into TIMINGS when timing is on;
+    `outputs` is kept for work counts read later."""
 
     def __init__(self, name, device, outputs=()):
         self.name, self.device, self.outputs = name, device, outputs
 
     def __enter__(self):
+        import torch
+        self.guard = torch.cuda.device(self.device)
+        self.guard.__enter__()
         if TIMINGS is not None:
-            import torch
             self.ev = (torch.cuda.Event(enable_timing=True),
                        torch.cuda.Event(enable_timing=True))
             self.ev[0].record(torch.cuda.current_stream(self.device))
         return self
 
     def __exit__(self, *exc):
-        if TIMINGS is not None and exc[0] is None:
-            import torch
-            self.ev[1].record(torch.cuda.current_stream(self.device))
-            TIMINGS.append((self.name, self.ev[0], self.ev[1], self.outputs))
+        try:
+            if TIMINGS is not None and exc[0] is None:
+                import torch
+                self.ev[1].record(torch.cuda.current_stream(self.device))
+                TIMINGS.append((self.name, self.ev[0], self.ev[1],
+                                self.outputs))
+        finally:
+            self.guard.__exit__(*exc)
         return False
 
 

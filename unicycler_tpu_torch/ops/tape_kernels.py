@@ -317,15 +317,20 @@ def tape_forward_plain(rowinfo, gplane, r_flat, scoring: Scoring,
 _RESIDENT = {}
 
 
-def resident_clusters(C, W):
-    """Clusters of C blocks of the forward kernel at band W that the card
-    holds at once (cudaOccupancyMaxActiveClusters), cached."""
-    key = (C, region_width(W), torch.cuda.current_device())
+def resident_clusters(C, W, device=None):
+    """Clusters of C blocks of the forward kernel at band W that `device`
+    (None: the current one) holds at once
+    (cudaOccupancyMaxActiveClusters), cached."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    key = (C, region_width(W), index)
     if key not in _RESIDENT:
         import ctypes
         n = ctypes.c_int()
-        cuda_lib.check(cuda_lib.lib().tape_fwd_clusters(
-            C, key[1], ctypes.byref(n)), 'tape_fwd_clusters')
+        with torch.cuda.device(index):
+            cuda_lib.check(cuda_lib.lib().tape_fwd_clusters(
+                C, key[1], ctypes.byref(n)), 'tape_fwd_clusters')
         _RESIDENT[key] = n.value
     return _RESIDENT[key]
 
@@ -335,7 +340,8 @@ def launch_cluster(tracks, W, device):
     tracks at band W on `device` (cluster_size on the card's SM count and
     resident clusters)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return cluster_size(tracks, W, sms, lambda C: resident_clusters(C, W))
+    return cluster_size(tracks, W, sms,
+                        lambda C: resident_clusters(C, W, device))
 
 
 def tape_forward_cuda(rowinfo, gplane, r_flat, ngt, scoring: Scoring,

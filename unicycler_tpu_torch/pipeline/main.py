@@ -24,9 +24,13 @@ every input mode:
 
 Every call that aligns runs on `device`.
 
-The port runs in one process: the JAX package's multi-host join
-(parallel/distributed.maybe_initialize) comes with the port's parallel
-slice and is not called here.
+Several processes (one a card) can share a run: main joins the process
+group that UNICYCLER_TPU_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID name
+(parallel/distributed.maybe_initialize; without them it is one process).
+Long-read alignment then shards its reads over the processes inside
+semi_global_align_long_reads and allgathers the results; the graph
+stages run replicated (they are deterministic), so every process writes
+the same outputs, and only the main process logs.
 
     python -m unicycler_tpu_torch -1 R1.fq -2 R2.fq -l reads.fq -o out
 
@@ -282,8 +286,16 @@ def main(arg_list=None, device=None):
     random.seed(0)   # run-to-run determinism (ref unicycler.py:52)
     args = get_arguments(arg_list)
     device = resolve_device(device)
+    # several processes: join the group the environment names (a no-op in
+    # one process); non-main processes run silent and write no log
+    from ..parallel.distributed import maybe_initialize
+    dist_ctx = maybe_initialize()
     os.makedirs(args.out, exist_ok=True)
-    log.logger = log.Log(os.path.join(args.out, 'unicycler_tpu_torch.log'),
+    if dist_ctx.active and not dist_ctx.is_main:
+        args.verbosity = 0
+    log.logger = log.Log(os.path.join(args.out, 'unicycler_tpu_torch.log')
+                         if (not dist_ctx.active or dist_ctx.is_main)
+                         else None,
                          stdout_verbosity_level=args.verbosity)
 
     short_reads_available = bool(args.short1) or bool(args.unpaired)
