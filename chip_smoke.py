@@ -56,8 +56,14 @@ Phases (every failed check raises, so the exit code is nonzero):
      block a track), bit-equal over each track's real groups; an A/B of
      the two layouts on 84
      bridging-shaped tasks at W = 4096 (JAX, card, card, JAX) with equal
-     per-task results; and the full-matrix DP (torch ops) timed at the
-     bridging path's short-pair shape;
+     per-task results; then the full-matrix DP kernel (csrc/pairwise.cu)
+     against its plain version (align_batch_plain): a 1,300 bp repeat's
+     consensus (12 pairs) under every AlignConfig with band None, 20 and
+     1000 and without moves, 12 pairs of 100-2,000 bp in one call, pairs
+     with n_act 0 and m_act 0, and the two widest pairs the full DP takes
+     (n_pad 131,072 x m_pad 128 and 128 x 131,072, two pairs each):
+     score and ends bit-equal, moves on each pair's real region; the
+     launch's CUDA-event time beside the plain version's and the bound;
   7. bridging: the 5 Mbp + 100 kbp genome with 7 copies of a 5,000 bp and
      12 of a 1,300 bp repeat planted in the chromosome (each with a 250 bp
      indel allele in about half of its copies), its collapsed overlap-0
@@ -66,11 +72,14 @@ Phases (every failed check raises, so the exit code is nonzero):
      checks that every planted adjacency is bridged, that >= 95% of the
      bridges take the true allele's path, that every CIGAR of consensus and
      path scoring re-tallies to its score, and that the row-tape kernels
-     and the full-matrix DP ran; lists every row forward launch (tracks,
-     blocks a track, SMs busy, time, bound), fails on a row launch under
-     min(tasks, 132) tracks that the budget could hold, replays every
-     banded call of W > 2048 in the JAX package's row layout (the parent
-     commit's) with equal results, and prints a digest of the bridges;
+     and the full-matrix DP kernel ran; lists every row forward launch
+     (tracks, blocks a track, SMs busy, time, bound), fails on a row
+     launch under min(tasks, 132) tracks that the budget could hold,
+     replays every banded call of W > 2048 in the JAX package's row
+     layout (the parent commit's) with equal results, replays every
+     full-matrix DP call
+     (pairwise.align_pairs) through align_batch_plain on the card with
+     equal PairAlignments, and prints a digest of the bridges;
   9. the per-task wavefront forward (wavefront_batch_corridor) at the
      shapes of scripts/wavefront_microbench.py (8 tasks of 2,048 rows, W =
      512 and 1024, drift 0 and 4 per 16 rows), at W = 4096 and 16384 (8
@@ -112,7 +121,8 @@ Phases (every failed check raises, so the exit code is nonzero):
      replicon and strand), that at least 18 of the 19 planted copies are
      resolved (their flanks in one sequence, on the true allele's
      distance), that the plasmid is one circular contig rotated as
-     rotation.py says and that kernels 1, 2, 4 and 5 ran; prints the
+     rotation.py says and that kernels 1, 2, 4 and 5 and the full-matrix
+     DP kernel ran; prints the
      spans, each bridge kind's count and seconds, each kernel's device
      time beside the wall and the peak device memory; the outputs stay in
      chiprun_out/hybrid/;
@@ -131,7 +141,8 @@ Phases (every failed check raises, so the exit code is nonzero):
      phase 11's gates (every CIGAR re-tallied, >= 99% identity over >= 99%
      of the genome with no misjoin, all copies but one resolved, the
      plasmid one rotated circle), the de Bruijn spans (correction, each
-     k's k-mer count, pair resolution), that kernels 1 and 2 ran, and that
+     k's k-mer count, pair resolution), that kernels 1 and 2 and the
+     full-matrix DP kernel ran, and that
      kmer_count.count_spectrum on the card over the corrected reads at
      k = 21 and 31 equals np.unique; prints the wall, the spans, the k
      ladder's scores and the best k, each kernel's device time beside its
@@ -155,9 +166,11 @@ Phases (every failed check raises, so the exit code is nonzero):
      tests/test_distributed_pipeline.py (both assembly.fasta files
      byte-equal to a single-process run on the card); per-rank walls,
      local reads, allgather bytes and seconds;
-  8. summary (printed last): one {"kernels": [...]} line with all seven
-     kernels (each also with its launches on phase 11's, phase 12's and
-     phase 13's paths), then the card's line.
+  8. summary (printed last): one {"kernels": [...]} line with the seven
+     twins of the Pallas kernels and the full-matrix DP kernel (the twin
+     of the JAX package's lax.scan in ops/pairwise.py; its launches are
+     phase 7's), each also with its launches on phase 11's, phase 12's and
+     phase 13's paths, then the card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
 without the package beside this script. Details go to
@@ -185,6 +198,10 @@ OPS_PER_CELL_WAVE = 45
 OPS_PER_STEP_WALK = 30
 OPS_PER_CELL_BANDED = 45
 OPS_PER_CELL_ROW = 45
+# the full-matrix DP's inner loop (csrc/pairwise.cu): F, the substitution,
+# the diagonal, G and c, the serial maximum, E, H, the band mask, the two
+# extension bits, the H source, the moves byte and the captures
+OPS_PER_CELL_FULL = 45
 # the per-task wavefront forward's inner loop: F, E (with its clamp), the
 # substitution, the row / column masks, diagonal, boundary cells, H and
 # the row-n / column-m captures
@@ -351,7 +368,8 @@ def kernel_costs(timings):
     (cuda_lib.TIMINGS entries)."""
     costs = {'wavetape_fwd': wave_fwd_cost, 'wavetape_walk': wave_walk_cost,
              'tape_walk': tape_walk_cost, 'banded': banded_cost,
-             'banded_walk': banded_walk_cost, 'tape_fwd': tape_fwd_cost}
+             'banded_walk': banded_walk_cost, 'tape_fwd': tape_fwd_cost,
+             'pairwise': pairwise_cost}
     totals = {}
     for name, ev0, ev1, outs in timings:
         agg = totals.setdefault(name, {'ms': 0.0, 'bytes': 0, 'ops': 0,
@@ -1339,15 +1357,15 @@ def phase_tape_kernels(rng, dev, results, report):
     """The row-tape forward kernel (at each cluster size) and walker
     against their plain versions at the bridging path's widths, in both
     layouts; an A/B of the layouts on bridging-shaped tasks; the
-    full-matrix DP timed on the card."""
-    import torch
+    full-matrix DP kernel against its plain version
+    (full_dp_against_plain)."""
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.ops import banded as bo
     from unicycler_tpu_torch.ops import pairwise as pw
-    from unicycler_tpu_torch.ops.encode import pack_pairs
     from unicycler_tpu_torch.ops.tape import build_row_launches, build_tapes
 
-    log('== phase 6: row-tape kernels against their plain versions')
+    log('== phase 6: row-tape and full-matrix DP kernels against their '
+        'plain versions')
     scoring = pw.Scoring(3, -6, -5, -2)
     config = pw.FULLY_GLOBAL
     # the JAX package's layout (several tasks a track) at 8 and 32 tracks
@@ -1376,28 +1394,136 @@ def phase_tape_kernels(rng, dev, results, report):
                                   results, 'card')
     row_layout_ab(rng, dev, scoring, config, report)
 
-    # the full-matrix DP (torch ops; no hand-written kernel yet) at the
-    # shape of a 1,300 bp repeat's consensus: 12 reads against one
+    full_dp_against_plain(rng, dev, results, report)
+
+
+def pairwise_cost(n_acts, m_acts, n_pad, m_pad, need_moves):
+    """(bytes, ops, cells) of one full-matrix DP launch over each pair's
+    real region (the kernel stops at row n_act and column m_act): the real
+    bases and the lengths read once, the score and ends and the real
+    region's moves (one byte a cell) written once; n_act * (m_act + 1)
+    cells a pair at OPS_PER_CELL_FULL."""
+    import torch
+    n = n_acts.to('cpu', torch.int64).clamp(0, n_pad)
+    m = m_acts.to('cpu', torch.int64).clamp(0, m_pad)
+    cells = int((n * (m + 1)).sum())
+    nbytes = int(n.sum() + m.sum()) + 8 * len(n) + 12 * len(n) \
+        + (cells if need_moves else 0)
+    return nbytes, cells * OPS_PER_CELL_FULL, cells
+
+
+def full_dp_against_plain(rng, dev, results, report):
+    """csrc/pairwise.cu (align_batch_cuda) against align_batch_plain on
+    the same inputs: score, end_i and end_j bit-equal, and the moves on
+    each pair's real region [0, n_act) x [0, m_act]; CUDA-event time of
+    the launch alone beside the plain version's and the bound. Shapes: a
+    1,300 bp repeat's consensus (12 reads against one) under every
+    AlignConfig with band None, 20 and 1000 and without moves; 12 pairs
+    of mixed lengths (100-2,000 bp) in one call; pairs with n_act 0 and
+    m_act 0 beside real ones; and the widest pairs dispatch.batch_align
+    sends here (2^24 bucketed cells): n_pad 131,072 x m_pad 128 and 128 x
+    131,072, two pairs each. The tall shape's plain version runs on the
+    CPU (its 131,072-row loop of small ops is faster there)."""
+    import torch
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.ops import pairwise as pw
+    from unicycler_tpu_torch.ops.encode import pack_pairs
+
+    scoring = pw.Scoring(3, -6, -5, -2)
+    configs = {'semi': pw.SEMI_GLOBAL, 'global': pw.FULLY_GLOBAL,
+               'path': pw.PATH_CONFIG, 'overlap': pw.OVERLAP_CONFIG,
+               'end': pw.END_CONFIG}
     pairs = synth.banded_tasks(rng, [1300] * 12)
-    qs, rs = [p[0] for p in pairs], [p[1] for p in pairs]
-    host = pack_pairs(qs, rs, max(len(q) for q in qs),
-                      max(len(r) for r in rs))
-    args = [torch.from_numpy(x).to(dev) for x in host]
-    full = lambda: pw.align_batch_device(*args, scoring, config, True)
-    full()
-    full_ms, out_k = cuda_time(full)
-    out_p = pw.align_batch_device(*(torch.from_numpy(x) for x in host),
-                                  scoring, config, True)
-    for n, a, b in zip(('score', 'end_i', 'end_j', 'moves'), out_k, out_p):
-        exact('full-matrix DP ' + n, a.cpu(), b)
-    cells = len(qs) * host[0].shape[1] * (host[2].shape[1] + 1)
-    report['full_dp'] = {'pairs': len(qs), 'n_pad': host[0].shape[1],
-                         'm_pad': host[2].shape[1], 'ms': full_ms,
-                         'cells': cells}
-    log('full-matrix DP: %d pairs of %d x %d, %.3f ms on the card (%.3g '
-        'cells/s), equal to the same torch ops on the CPU'
-        % (len(qs), host[0].shape[1], host[2].shape[1], full_ms,
-           cells / (full_ms * 1e-3)))
+    consensus = ([p[0] for p in pairs], [p[1] for p in pairs])
+    mixed = synth.sized_pairs(rng, [(int(x), int(x * rng.uniform(0.9, 1.1)))
+                                    for x in rng.integers(100, 2000, 12)])
+    empty = synth.sized_pairs(rng, [(0, 500), (500, 0), (0, 0), (300, 320)])
+    tall = synth.sized_pairs(rng, [(131072, 128), (131000, 120)])
+    wide = synth.sized_pairs(rng, [(128, 131072), (120, 131000)])
+    cases = [('consensus', consensus, c, band, True, 'cuda')
+             for c in configs for band in (None, 20, 1000)]
+    cases += [('consensus', consensus, c, None, False, 'cuda')
+              for c in configs]
+    cases += [('mixed', mixed, 'semi', None, True, 'cuda'),
+              ('mixed', mixed, 'global', 1000, True, 'cuda')]
+    cases += [('empty', empty, c, None, True, 'cuda') for c in configs]
+    cases += [('tall', tall, 'semi', None, True, 'cpu'),
+              ('wide', wide, 'semi', None, True, 'cuda'),
+              ('wide', wide, 'global', 20, True, 'cuda')]
+    line = []
+    # score and ends do not depend on need_moves: the cases without moves
+    # are held to the plain version's run with moves on the same inputs
+    plain_runs = {}
+    for shape, (qs, rs), cname, band, need_moves, plain_dev in cases:
+        host = pack_pairs(qs, rs, max(max(len(q) for q in qs), 1),
+                          max(max(len(r) for r in rs), 1))
+        if band is not None:
+            diffs = host[3].astype('int64') - host[1].astype('int64')
+            diags = [(-band - diffs.clip(0)).astype('int32'),
+                     (band + (-diffs).clip(0)).astype('int32')]
+        else:
+            diags = [None, None]
+        up = [None if x is None else torch.from_numpy(x).to(dev)
+              for x in list(host) + diags]
+        args = up[:4] + [scoring, configs[cname], need_moves] + up[4:]
+        launch = lambda: pw.align_batch_cuda(*args)
+        launch()
+        ms, got = kernel_time(launch, reps=3)
+        pdev = torch.device(plain_dev) if plain_dev == 'cpu' else dev
+        pargs = [None if x is None else x.to(pdev) for x in up]
+        plain = lambda: pw.align_batch_plain(
+            *pargs[:4], scoring, configs[cname], need_moves, *pargs[4:])
+        key = (shape, cname, band)
+        if key in plain_runs:
+            plain_ms, want = plain_runs[key]
+        elif plain_dev == 'cpu':
+            t0 = time.time()
+            want = plain()
+            plain_ms = 1e3 * (time.time() - t0)
+        else:
+            plain_ms, want = cuda_time(plain)
+        if need_moves:
+            plain_runs[key] = (plain_ms, tuple(want[:3]) + (None,))
+        tag = 'pairwise %s %s band %s%s' % (shape, cname, band,
+                                            '' if need_moves else ' no moves')
+        err = max(exact(tag + ' ' + n, a.cpu(), b.cpu())
+                  for n, a, b in zip(('score', 'end_i', 'end_j'), got, want))
+        if need_moves:
+            km, pm = got[3].cpu(), want[3].cpu()
+            for b, (q, r) in enumerate(zip(qs, rs)):
+                err = max(err, exact('%s moves pair %d' % (tag, b),
+                                     km[b, :len(q), :len(r) + 1],
+                                     pm[b, :len(q), :len(r) + 1]))
+            del km, pm
+        elif got[3] is not None:
+            raise AssertionError(tag + ': moves returned without need_moves')
+        del got, want
+        nbytes, ops, cells = pairwise_cost(up[1], up[3], host[0].shape[1],
+                                           host[2].shape[1], need_moves)
+        rows = max(len(q) for q in qs)
+        results.append({'name': 'pairwise', 'shape': shape, 'config': cname,
+                        'band': band, 'need_moves': need_moves,
+                        'pairs': len(qs), 'n_pad': host[0].shape[1],
+                        'm_pad': host[2].shape[1], 'ms': ms,
+                        'us_per_row': 1e3 * ms / max(rows, 1),
+                        'plain_ms': plain_ms, 'plain_device': plain_dev,
+                        'plain_with_moves': not need_moves,
+                        'bound_ms': bound_ms(nbytes, ops), 'bytes': nbytes,
+                        'cells': cells, 'max_abs_err': err,
+                        'summary': (shape, cname, band, need_moves)
+                        == ('consensus', 'semi', None, True)})
+        line.append('%s %s band %s%s: %d pairs of %d x %d, %.3f ms (%.3f us '
+                    'a row; plain %.1f ms on %s%s; bound %.4f ms)'
+                    % (shape, cname, band, '' if need_moves else ' no moves',
+                       len(qs), host[0].shape[1], host[2].shape[1], ms,
+                       1e3 * ms / max(rows, 1), plain_ms, plain_dev,
+                       '' if need_moves else ', its run with moves',
+                       bound_ms(nbytes, ops)))
+    report['full_dp'] = [r for r in results if r['name'] == 'pairwise']
+    log('full-matrix DP kernel (csrc/pairwise.cu) bit-equal to its plain '
+        'version on %d calls:' % len(line))
+    for text in line:
+        log('  ' + text)
 
 
 def bridging_workload(seed, genome=5_000_000, plasmid=100_000,
@@ -1450,6 +1576,7 @@ def phase_bridging(args, dev, report, workload=None):
     from unicycler_tpu_torch.graph.assembly_graph import AssemblyGraph
     from unicycler_tpu_torch.io.fastx import Read, Reference
     from unicycler_tpu_torch.ops import banded, cuda_lib, dispatch
+    from unicycler_tpu_torch.ops import pairwise as pw
     from unicycler_tpu_torch.ops import tape as tape_ops
     from unicycler_tpu_torch.utils import trace
 
@@ -1490,11 +1617,18 @@ def phase_bridging(args, dev, report, workload=None):
     anchors = [graph.segments[n] for n in anchor_nums]
 
     # observe every alignment of consensus and path scoring, and every
-    # banded call with its results
+    # banded and full-matrix DP call with its results
     captured = []
     banded_calls = []
+    pair_calls = []
     inner = dispatch.batch_align
     inner_banded = banded.align_banded
+    inner_pairs = pw.align_pairs
+
+    def observed_pairs(q_list, r_list, **kw):
+        out = inner_pairs(q_list, r_list, **kw)
+        pair_calls.append((q_list, r_list, kw, out))
+        return out
 
     def observed_banded(tasks, scoring, config=None, band=25,
                         need_cigar=True, device=None):
@@ -1517,6 +1651,7 @@ def phase_bridging(args, dev, report, workload=None):
     cuda_lib.TIMINGS = []
     dispatch.batch_align = observed
     banded.align_banded = observed_banded
+    pw.align_pairs = observed_pairs
     sync(dev)
     cuda_lib.reset_launches()
     t0 = time.time()
@@ -1528,6 +1663,7 @@ def phase_bridging(args, dev, report, workload=None):
     finally:
         dispatch.batch_align = inner
         banded.align_banded = inner_banded
+        pw.align_pairs = inner_pairs
     wall = time.time() - t0
     launches = dict(cuda_lib.LAUNCHES)
     timings, cuda_lib.TIMINGS = cuda_lib.TIMINGS, None
@@ -1581,6 +1717,17 @@ def phase_bridging(args, dev, report, workload=None):
             for t, sc, cf, bd, nc, out in row_calls)
     finally:
         tape_ops.build_row_launches = card_layout
+    # every full-matrix DP call again through its plain version on the
+    # card: every PairAlignment must be equal
+    t1 = time.time()
+    kernel_route = pw.align_batch_device
+    pw.align_batch_device = pw.align_batch_plain
+    try:
+        pairs_same = sum(inner_pairs(q, r, **kw) == out
+                         for q, r, kw, out in pair_calls)
+    finally:
+        pw.align_batch_device = kernel_route
+    pairs_replay_s = time.time() - t1
     digest = hashlib.sha256(json.dumps(sorted(
         (b.start_segment, b.end_segment, list(b.graph_path),
          round(float(b.quality), 6)) for b in bridges)).encode()).hexdigest()
@@ -1599,6 +1746,10 @@ def phase_bridging(args, dev, report, workload=None):
     log('banded calls of W > 2048 replayed in the JAX package\'s row layout '
         '(the parent commit\'s): %d/%d give the same results; bridges '
         'sha256 %s' % (replay_same, len(row_calls), digest))
+    log('full-matrix DP calls replayed through align_batch_plain on the '
+        'card: %d/%d give equal PairAlignments (%d pairs, %.1f s)'
+        % (pairs_same, len(pair_calls),
+           sum(len(c[0]) for c in pair_calls), pairs_replay_s))
     log('pairs: %d full-matrix DP, %d banded; %d alignments re-tallied, %d '
         'degenerate (empty CIGAR)'
         % (counters.get('dispatch.full_dp_pairs', 0),
@@ -1621,6 +1772,9 @@ def phase_bridging(args, dev, report, workload=None):
         'per_kernel': per_kernel, 'counters': counters, 'spans': spans,
         'row_launches': row_launches, 'row_calls': len(row_calls),
         'row_calls_same_in_jax_layout': replay_same,
+        'full_dp_calls': len(pair_calls),
+        'full_dp_calls_same_as_plain': pairs_same,
+        'full_dp_replay_s': pairs_replay_s,
         'bridges_sha256': digest}
     if missing:
         raise AssertionError('planted adjacencies without a bridge: %s'
@@ -1642,6 +1796,12 @@ def phase_bridging(args, dev, report, workload=None):
                              'the moves budget could hold')
     if counters.get('dispatch.full_dp_pairs', 0) <= 0:
         raise AssertionError('bridging did not run the full-matrix DP')
+    if launches['pairwise'] <= 0:
+        raise AssertionError('bridging did not launch the full-matrix DP '
+                             'kernel')
+    if pairs_same != len(pair_calls):
+        raise AssertionError('%d full-matrix DP calls differ from their '
+                             'plain version' % (len(pair_calls) - pairs_same))
     return launches, per_kernel
 
 
@@ -2344,7 +2504,8 @@ def phase_hybrid(args, dev, report, workload=None):
     if not plasmid_ok:
         raise AssertionError('the plasmid is not one circular contig '
                              'rotated as rotation.py says')
-    for name in ('wavetape_fwd', 'wavetape_walk', 'tape_fwd', 'tape_walk'):
+    for name in ('wavetape_fwd', 'wavetape_walk', 'tape_fwd', 'tape_walk',
+                 'pairwise'):
         if launches[name] <= 0:
             raise AssertionError('the hybrid run did not launch %s' % name)
     return launches, per_kernel
@@ -2616,7 +2777,7 @@ def phase_shortread(args, dev, report, workload=None):
     if len(ladder) != 8 or missing:
         raise AssertionError('de Bruijn spans: %d k values, missing %s'
                              % (len(ladder), missing))
-    for name in ('wavetape_fwd', 'wavetape_walk'):
+    for name in ('wavetape_fwd', 'wavetape_walk', 'pairwise'):
         if launches[name] <= 0:
             raise AssertionError('the run did not launch %s' % name)
     return launches, per_kernel
@@ -3158,12 +3319,18 @@ def main():
                'banded_walk': ('unicycler_tpu_torch/csrc/banded_walk.cu',
                                'unicycler_tpu/ops/pallas_traceback.py:150'),
                'wavefront_fwd': ('unicycler_tpu_torch/csrc/wavefront_fwd.cu',
-                                 'unicycler_tpu/ops/pallas_wavefront.py:312')}
+                                 'unicycler_tpu/ops/pallas_wavefront.py:312'),
+               # the twin of a lax.scan device program, not of a Pallas
+               # kernel: _align_single's row scan
+               'pairwise': ('unicycler_tpu_torch/csrc/pairwise.cu',
+                            'unicycler_tpu/ops/pairwise.py:167')}
     # the row-tape kernels' summary row is phase 6's card layout at the
     # bridging path's W 4096 (the forward at the launch's own cluster
     # size); the wave kernels' the assembly's (the card's layout at W 512);
     # the retry pair's the flagged shapes (kernel 3: phase 3's W 1024,
-    # kernel 6: phase 5's W 2048); the others' the widest shape measured
+    # kernel 6: phase 5's W 2048), the full-matrix DP's phase 6's
+    # consensus shape (SEMI_GLOBAL, unbanded, with moves); the others' the
+    # widest shape measured
     kernels = []
     for kname, (src, replaces) in sources.items():
         rows = [r for r in kres if r['name'] == kname]
@@ -3181,11 +3348,13 @@ def main():
         else:
             row = max(rows, key=lambda r: (r['W'], r['bt']))
         # each kernel's launches on the path that runs it, counted from 0
-        # just before that path: retries (phase 5), bridging (phase 7),
-        # the wavefront entry (phase 9), the assembly (phase 10)
+        # just before that path: retries (phase 5), bridging (phase 7:
+        # the row-tape kernels and the full-matrix DP), the wavefront
+        # entry (phase 9), the assembly (phase 10)
+        on_bridging = kname.startswith('tape_') or kname == 'pairwise'
         if kname in retry_launches:
             n_launch = retry_launches[kname]
-        elif kname.startswith('tape_'):
+        elif on_bridging:
             n_launch = bridge_launches[kname]
         elif kname == 'wavefront_fwd':
             n_launch = wavefront_launches
@@ -3198,12 +3367,17 @@ def main():
                  'bound_ms': row['bound_ms'],
                  'bound_by': 'operations' if row['bound_ms'] * 1e-3
                  > row['bytes'] / PEAK_BYTES_S else 'bytes',
-                 'library_ms': None, 'shape': {'W': row['W'],
-                                               'bt': row['bt']}}
+                 'library_ms': None}
+        if kname == 'pairwise':
+            entry['replaces_kind'] = 'lax.scan device program, not Pallas'
+            entry['shape'] = {k: row[k] for k in ('pairs', 'n_pad', 'm_pad',
+                                                  'config', 'band')}
+            entry['assembly_launches'] = asm_launches.get(kname, 0)
+        else:
+            entry['shape'] = {'W': row['W'], 'bt': row['bt']}
         if 'C' in row:
             entry['shape']['C'] = row['C']
-        main_kernels = bridge_kernels if kname.startswith('tape_') \
-            else asm_kernels
+        main_kernels = bridge_kernels if on_bridging else asm_kernels
         if kname in main_kernels:
             entry['main_path_ms'] = main_kernels[kname]['ms']
             entry['main_path_bound_ms'] = main_kernels[kname]['bound_ms']

@@ -766,3 +766,111 @@ def test_gpu_align_banded_multi_over_every_card(W):
     tasks = tasks_np(13, [80, 160, 240, 320, 400, 120, 200, 280] * n, True)
     got, want = _multi_against_single(devices, W, 'semi', tasks)
     assert got == want
+
+
+def _full_dp_pairs(shape):
+    """Code-array pairs of one full-matrix DP probe shape (chip_smoke.py
+    phase 6): a 1,300 bp repeat's consensus, 100-2,000 bp mixed in one
+    call, empty sides beside a real pair, and the two widest pairs
+    dispatch.batch_align sends to the full DP (2^24 bucketed cells)."""
+    from unicycler_tpu_torch import synth
+    rng = np.random.default_rng(31)
+    if shape == 'consensus':
+        pairs = synth.banded_tasks(rng, [1300] * 12)
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    sizes = {'mixed': [(int(x), int(x * rng.uniform(0.9, 1.1)))
+                       for x in rng.integers(100, 2000, 12)],
+             'empty': [(0, 500), (500, 0), (0, 0), (300, 320)],
+             'tall': [(131072, 128), (131000, 120)],
+             'wide': [(128, 131072), (120, 131000)]}[shape]
+    return synth.sized_pairs(rng, sizes)
+
+
+@pytest.mark.parametrize('shape,band', [
+    ('consensus', None), ('consensus', 20), ('consensus', 1000),
+    ('mixed', None), ('mixed', 20), ('empty', None), ('empty', 20),
+    ('wide', None), ('wide', 20), ('tall', None)])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_full_dp_bit_equal_to_plain(cfg, shape, band):
+    """csrc/pairwise.cu against align_batch_plain: score and ends
+    bit-equal, moves on each pair's real region [0, n_act) x [0, m_act];
+    without moves the same score and ends. The tall shape's plain version
+    runs on the CPU (its 131,072-row loop of small ops is faster there)."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import pairwise as pw
+    from unicycler_tpu_torch.ops.encode import pack_pairs
+    qs, rs = _full_dp_pairs(shape)
+    host = list(pack_pairs(qs, rs, max(max(len(q) for q in qs), 1),
+                           max(max(len(r) for r in rs), 1)))
+    if band is not None:
+        diffs = host[3].astype(np.int64) - host[1].astype(np.int64)
+        host += [(-band - np.maximum(0, diffs)).astype(np.int32),
+                 (band + np.maximum(0, -diffs)).astype(np.int32)]
+    up = [torch.from_numpy(x).to(dev) for x in host]
+    args = (pw.Scoring(*SCORING_T), pw.AlignConfig(*CONFIGS[cfg]))
+    before = cuda_lib.LAUNCHES['pairwise']
+    got = pw.align_batch_device(*up[:4], *args, True, *up[4:])
+    bare = pw.align_batch_device(*up[:4], *args, False, *up[4:])
+    assert cuda_lib.LAUNCHES['pairwise'] == before + 2
+    pdev = 'cpu' if shape == 'tall' else dev
+    want = pw.align_batch_plain(*(x.to(pdev) for x in up[:4]), *args, True,
+                                *(x.to(pdev) for x in up[4:]))
+    for g, n, w in zip(got[:3], bare[:3], want[:3]):
+        assert torch.equal(g.cpu(), w.cpu()) and torch.equal(n, g)
+    assert bare[3] is None
+    km, pm = got[3].cpu(), want[3].cpu()
+    for b, (q, r) in enumerate(zip(qs, rs)):
+        assert torch.equal(km[b, :len(q), :len(r) + 1],
+                           pm[b, :len(q), :len(r) + 1]), b
+
+
+def test_gpu_align_pairs_from_eight_threads_matches_serial():
+    """Bridging finalises up to 8 bridges on threads, each launching the
+    full-matrix DP on the caller's stream: the same calls from 8 threads
+    at once give the serial results."""
+    from concurrent.futures import ThreadPoolExecutor
+    dev = _cuda()
+    from unicycler_tpu_torch import synth
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import pairwise as pw
+    rng = np.random.default_rng(17)
+    calls = []
+    for k in range(16):
+        pairs = synth.banded_tasks(rng, [int(x) for x in
+                                         rng.integers(200, 1500, 4)])
+        calls.append(([p[0] for p in pairs], [p[1] for p in pairs],
+                      sorted(CONFIGS)[k % len(CONFIGS)]))
+
+    def run(call):
+        qs, rs, cfg = call
+        return [pa_key(p) for p in pw.align_pairs(
+            qs, rs, pw.Scoring(*SCORING_T), pw.AlignConfig(*CONFIGS[cfg]),
+            device=dev)]
+
+    serial = [run(c) for c in calls]
+    before = cuda_lib.LAUNCHES['pairwise']
+    with ThreadPoolExecutor(8) as pool:
+        threaded = list(pool.map(run, calls))
+    assert threaded == serial
+    assert cuda_lib.LAUNCHES['pairwise'] > before
+
+
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_batch_align_full_route_matches_cpu(cfg):
+    """dispatch.batch_align with every pair under MAX_FULL_DP_CELLS: the
+    full-matrix route on the card (csrc/pairwise.cu) equals its CPU route,
+    with and without CIGARs."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import cuda_lib, dispatch
+    from unicycler_tpu_torch.ops.pairwise import AlignConfig, Scoring
+    qs, rs = _full_dp_pairs('mixed')
+    for need_cigar in (True, False):
+        args = (Scoring(*SCORING_T), AlignConfig(*CONFIGS[cfg]), 1000,
+                need_cigar)
+        cuda_lib.reset_launches()
+        got = dispatch.batch_align(qs, rs, *args, device=dev)
+        assert cuda_lib.LAUNCHES['pairwise'] == 1
+        assert cuda_lib.LAUNCHES['tape_fwd'] == 0
+        want = dispatch.batch_align(qs, rs, *args, device='cpu')
+        assert [pa_key(p) for p in got] == [pa_key(p) for p in want]

@@ -5,9 +5,11 @@ codes shared by every DP kernel, the free-end-gap AlignConfig, the Scoring
 tuple, the RunCigar/PairAlignment result types, the full-matrix DP
 (align_batch_device, the batched twin of the JAX _align_single) and its
 host API align_pairs with the host traceback decoder. The JAX package runs
-this DP as plain XLA (a lax.scan over rows), so the port runs it as plain
-torch ops: the batch is vectorised, the rows are a Python loop, and E is a
-torch.cummax over columns.
+this DP as a device program (a lax.scan over rows, vmapped over the
+batch); the port runs it as the hand-written kernel csrc/pairwise.cu on a
+CUDA tensor (align_batch_cuda) and as its plain PyTorch version on a CPU
+tensor (align_batch_plain: the batch vectorised, the rows a Python loop,
+E a torch.cummax over columns).
 
 Scoring convention (matches SeqAn Score<int,Simple>(match, mismatch, ext,
 open) used throughout the reference): a gap of length L costs
@@ -18,6 +20,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import cuda_lib
 
 NEG = -(2 ** 30)
 NEG_BAND = 2 ** 28          # 'unbanded' diagonal bound sentinel
@@ -64,15 +68,15 @@ class Scoring(NamedTuple):
 DEFAULT_SCORING = Scoring(3, -6, -5, -2)
 
 
-def align_batch_device(q_batch, q_lens, r_batch, r_lens, scoring: Scoring,
-                       config: AlignConfig, need_moves: bool,
-                       lower_diags=None, upper_diags=None):
-    """Full-matrix Gotoh DP over a padded batch, on the tensors' device.
-    q_batch (B, n_pad), r_batch (B, m_pad) int8; q_lens, r_lens (B,).
-    Cells outside the diagonal band lower <= (i - j) <= upper are masked
-    out (SeqAn banded-globalAlignment semantics; None = unbanded). Returns
-    (score, end_i, end_j) (B,) int32 and moves (B, n_pad, m_pad + 1)
-    uint8 (None without need_moves)."""
+def align_batch_plain(q_batch, q_lens, r_batch, r_lens, scoring: Scoring,
+                      config: AlignConfig, need_moves: bool,
+                      lower_diags=None, upper_diags=None):
+    """Full-matrix Gotoh DP over a padded batch in plain torch ops, on the
+    tensors' device. q_batch (B, n_pad), r_batch (B, m_pad) int8; q_lens,
+    r_lens (B,). Cells outside the diagonal band lower <= (i - j) <= upper
+    are masked out (SeqAn banded-globalAlignment semantics; None =
+    unbanded). Returns (score, end_i, end_j) (B,) int32 and moves (B,
+    n_pad, m_pad + 1) uint8 (None without need_moves)."""
     match_s, mismatch = int(scoring.match), int(scoring.mismatch)
     open_, ext = int(scoring.gap_open), int(scoring.gap_extend)
     assert open_ <= ext, 'prefix-scan Gotoh requires gap_open <= gap_extend'
@@ -162,6 +166,82 @@ def align_batch_device(q_batch, q_lens, r_batch, r_lens, scoring: Scoring,
         end_j = torch.where(better, m_act[:, 0].to(i32), end_j)
         score = torch.maximum(score, s)
     return score.to(i32), end_i, end_j, moves
+
+
+# csrc/pairwise.cu keeps the previous row's H and F in shared memory up to
+# this many columns (m_pad + 1 rounded up to 4), and in a global scratch
+# of (B, 2 * that) int32 above it
+SMEM_COLS = 28672
+
+
+def align_batch_cuda(q_batch, q_lens, r_batch, r_lens, scoring: Scoring,
+                     config: AlignConfig, need_moves: bool,
+                     lower_diags=None, upper_diags=None):
+    """Launch csrc/pairwise.cu: align_batch_plain's contract, with moves
+    rows at and past each pair's n_act and columns past its m_act
+    unspecified. Bases int8, lengths and diagonals int32, all contiguous
+    on one CUDA device; lengths above the padding are clamped to it."""
+    B, n_pad = q_batch.shape
+    m_pad = r_batch.shape[1]
+    dev = q_batch.device
+    if dev.type != 'cuda':
+        raise ValueError('align_batch_cuda needs CUDA tensors, not %s' % dev)
+    checks = [('q_batch', q_batch, torch.int8, 2),
+              ('r_batch', r_batch, torch.int8, 2),
+              ('q_lens', q_lens, torch.int32, 1),
+              ('r_lens', r_lens, torch.int32, 1)]
+    for name, x in (('lower_diags', lower_diags),
+                    ('upper_diags', upper_diags)):
+        if x is not None:
+            checks.append((name, x, torch.int32, 1))
+    for name, x, dt, dim in checks:
+        if x.device != dev or x.dtype != dt or not x.is_contiguous() \
+                or x.dim() != dim or x.shape[0] != B:
+            raise ValueError('%s must be a contiguous %dD %s tensor of %d '
+                             'rows on %s' % (name, dim, dt, B, dev))
+    if int(scoring.gap_open) > int(scoring.gap_extend):
+        raise ValueError('prefix-scan Gotoh requires gap_open <= gap_extend')
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    end_i = torch.empty(B, dtype=torch.int32, device=dev)
+    end_j = torch.empty(B, dtype=torch.int32, device=dev)
+    moves = torch.empty((B, n_pad, m_pad + 1), dtype=torch.uint8,
+                        device=dev) if need_moves else None
+    if B == 0:
+        return score, end_i, end_j, moves
+    m1r = (m_pad + 4) // 4 * 4
+    scratch = torch.empty((B, 2 * m1r), dtype=torch.int32, device=dev) \
+        if m1r > SMEM_COLS else None
+    ptr = lambda x: x.data_ptr() if x is not None else None
+    lib = cuda_lib.lib()
+    with cuda_lib.timed('pairwise', dev, (q_lens, r_lens, n_pad, m_pad,
+                                          need_moves)):
+        err = lib.pairwise_launch(
+            q_batch.data_ptr(), r_batch.data_ptr(), q_lens.data_ptr(),
+            r_lens.data_ptr(), ptr(lower_diags), ptr(upper_diags),
+            ptr(moves), score.data_ptr(), end_i.data_ptr(), end_j.data_ptr(),
+            ptr(scratch), B, n_pad, m_pad, int(scoring.match),
+            int(scoring.mismatch), int(scoring.gap_open),
+            int(scoring.gap_extend), int(config.free_start_s1),
+            int(config.free_start_s2), int(config.free_end_s1),
+            int(config.free_end_s2), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(err, 'pairwise')
+    cuda_lib.LAUNCHES['pairwise'] += 1
+    return score, end_i, end_j, moves
+
+
+def align_batch_device(q_batch, q_lens, r_batch, r_lens, scoring: Scoring,
+                       config: AlignConfig, need_moves: bool,
+                       lower_diags=None, upper_diags=None):
+    """Full-matrix Gotoh DP over a padded batch on the tensors' device: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor (see
+    align_batch_plain for the contract)."""
+    args = (q_batch, q_lens, r_batch, r_lens, scoring, config, need_moves,
+            lower_diags, upper_diags)
+    if q_batch.device.type == 'cuda':
+        return align_batch_cuda(*args)
+    if q_batch.device.type == 'cpu':
+        return align_batch_plain(*args)
+    raise ValueError('unsupported device %s' % q_batch.device)
 
 
 # ---------------------------------------------------------------------------

@@ -135,6 +135,22 @@ def banded_tasks(rng, sizes, drift=False, sub=0.06, ins=0.02, dele=0.02):
     return out
 
 
+def sized_pairs(rng, sizes, sub=0.06, ins=0.03, dele=0.03):
+    """Full-matrix DP pairs of exact lengths: per (n, m), a random r of m
+    bases and q, a mutated copy of r cut or filled with random bases to n
+    (either may be empty). Returns (qs, rs) lists of int8 arrays."""
+    qs, rs = [], []
+    for n, m in sizes:
+        r = rng.integers(0, 4, m).astype(np.int8)
+        q = _mutate(rng, r, sub, ins, dele).astype(np.int8)[:n]
+        if len(q) < n:
+            q = np.concatenate([q, rng.integers(0, 4, n - len(q))
+                                .astype(np.int8)])
+        qs.append(q)
+        rs.append(r)
+    return qs, rs
+
+
 def zigzag_tasks(rng, sizes, amp=44, step=24, sub=0.03, ins=0.01,
                  dele=0.01):
     """Global banded-DP tasks whose corridors zigzag: per size n, a random
