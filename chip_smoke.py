@@ -64,6 +64,10 @@ Phases (every failed check raises, so the exit code is nonzero):
      (n_pad 131,072 x m_pad 128 and 128 x 131,072, two pairs each):
      score and ends bit-equal, moves on each pair's real region; the
      launch's CUDA-event time beside the plain version's and the bound;
+     on every call with moves the walker (csrc/pairwise_walk.cu) over the
+     kernel's outputs against its plain version (walk_full_plain, the
+     host decode): headers and runs equal, its CUDA-event time beside the
+     plain version's and its bound;
   7. bridging: the 5 Mbp + 100 kbp genome with 7 copies of a 5,000 bp and
      12 of a 1,300 bp repeat planted in the chromosome (each with a 250 bp
      indel allele in about half of its copies), its collapsed overlap-0
@@ -72,14 +76,17 @@ Phases (every failed check raises, so the exit code is nonzero):
      checks that every planted adjacency is bridged, that >= 95% of the
      bridges take the true allele's path, that every CIGAR of consensus and
      path scoring re-tallies to its score, and that the row-tape kernels
-     and the full-matrix DP kernel ran; lists every row forward launch
+     and the full-matrix DP kernel and its walker ran; lists every row
+     forward launch
      (tracks, blocks a track, SMs busy, time, bound), fails on a row
      launch under min(tasks, 132) tracks that the budget could hold,
      replays every banded call of W > 2048 in the JAX package's row
      layout (the parent commit's) with equal results, replays every
      full-matrix DP call
-     (pairwise.align_pairs) through align_batch_plain on the card with
-     equal PairAlignments, and prints a digest of the bridges;
+     (pairwise.align_pairs) through align_batch_plain and
+     walk_full_plain (the host decode) with equal PairAlignments, prints
+     the bytes the full DP fetched beside the moves bytes of its calls
+     (what a host decode copies), and prints a digest of the bridges;
   9. the per-task wavefront forward (wavefront_batch_corridor) at the
      shapes of scripts/wavefront_microbench.py (8 tasks of 2,048 rows, W =
      512 and 1024, drift 0 and 4 per 16 rows), at W = 4096 and 16384 (8
@@ -122,7 +129,7 @@ Phases (every failed check raises, so the exit code is nonzero):
      resolved (their flanks in one sequence, on the true allele's
      distance), that the plasmid is one circular contig rotated as
      rotation.py says and that kernels 1, 2, 4 and 5 and the full-matrix
-     DP kernel ran; prints the
+     DP kernel and its walker ran; prints the
      spans, each bridge kind's count and seconds, each kernel's device
      time beside the wall and the peak device memory; the outputs stay in
      chiprun_out/hybrid/;
@@ -142,7 +149,7 @@ Phases (every failed check raises, so the exit code is nonzero):
      of the genome with no misjoin, all copies but one resolved, the
      plasmid one rotated circle), the de Bruijn spans (correction, each
      k's k-mer count, pair resolution), that kernels 1 and 2 and the
-     full-matrix DP kernel ran, and that
+     full-matrix DP kernel and its walker ran, and that
      kmer_count.count_spectrum on the card over the corrected reads at
      k = 21 and 31 equals np.unique; prints the wall, the spans, the k
      ladder's scores and the best k, each kernel's device time beside its
@@ -167,9 +174,10 @@ Phases (every failed check raises, so the exit code is nonzero):
      byte-equal to a single-process run on the card); per-rank walls,
      local reads, allgather bytes and seconds;
   8. summary (printed last): one {"kernels": [...]} line with the seven
-     twins of the Pallas kernels and the full-matrix DP kernel (the twin
-     of the JAX package's lax.scan in ops/pairwise.py; its launches are
-     phase 7's), each also with its launches on phase 11's, phase 12's and
+     twins of the Pallas kernels, the full-matrix DP kernel (the twin of
+     the JAX package's lax.scan in ops/pairwise.py) and its walker (the
+     twin of the host function decode_traceback; both with phase 7's
+     launches), each also with its launches on phase 11's, phase 12's and
      phase 13's paths, then the card's line.
 
 Prints nothing of the result and exits nonzero without a CUDA device or
@@ -195,12 +203,13 @@ PEAK_OPS_S = 67e12
 # int32 operations per DP cell / walker step, counted from the kernels'
 # inner loops (loads and stores excluded)
 OPS_PER_CELL_WAVE = 45
-OPS_PER_STEP_WALK = 30
+OPS_PER_STEP_WALK = 30   # the full DP's walker too (csrc/pairwise_walk.cu)
 OPS_PER_CELL_BANDED = 45
 OPS_PER_CELL_ROW = 45
 # the full-matrix DP's inner loop (csrc/pairwise.cu): F, the substitution,
-# the diagonal, G and c, the serial maximum, E, H, the band mask, the two
-# extension bits, the H source, the moves byte and the captures
+# the diagonal, G, E's recurrence, H, the band mask, the two extension
+# bits, the H source, the moves byte, its share of the 16-byte stores and
+# of the strip's hand-off and captures
 OPS_PER_CELL_FULL = 45
 # the per-task wavefront forward's inner loop: F, E (with its clamp), the
 # substitution, the row / column masks, diagonal, boundary cells, H and
@@ -369,7 +378,7 @@ def kernel_costs(timings):
     costs = {'wavetape_fwd': wave_fwd_cost, 'wavetape_walk': wave_walk_cost,
              'tape_walk': tape_walk_cost, 'banded': banded_cost,
              'banded_walk': banded_walk_cost, 'tape_fwd': tape_fwd_cost,
-             'pairwise': pairwise_cost}
+             'pairwise': pairwise_cost, 'pairwise_walk': walk_full_cost}
     totals = {}
     for name, ev0, ev1, outs in timings:
         agg = totals.setdefault(name, {'ms': 0.0, 'bytes': 0, 'ops': 0,
@@ -1412,6 +1421,20 @@ def pairwise_cost(n_acts, m_acts, n_pad, m_pad, need_moves):
     return nbytes, cells * OPS_PER_CELL_FULL, cells
 
 
+def walk_full_cost(out):
+    """(bytes, ops, steps) of one full-DP walker launch from its output:
+    a moves byte a step of each pair's path (its runs' counts summed, the
+    row-0 and column-0 stops included), the score and ends read, the
+    header and runs written; OPS_PER_STEP_WALK a step."""
+    from unicycler_tpu_torch.ops import pairwise as pw
+    host = out.cpu().numpy()
+    steps = sum(sum(runs[0::2]) for _, runs in pw.walk_records(host))
+    n_runs = int(host[:, 3].sum()) if len(host) else 0
+    nbytes = steps + 12 * len(host) + 4 * (pw.WALK_HEAD * len(host)
+                                           + 2 * n_runs)
+    return nbytes, steps * OPS_PER_STEP_WALK, steps
+
+
 def full_dp_against_plain(rng, dev, results, report):
     """csrc/pairwise.cu (align_batch_cuda) against align_batch_plain on
     the same inputs: score, end_i and end_j bit-equal, and the moves on
@@ -1423,7 +1446,11 @@ def full_dp_against_plain(rng, dev, results, report):
     m_act 0 beside real ones; and the widest pairs dispatch.batch_align
     sends here (2^24 bucketed cells): n_pad 131,072 x m_pad 128 and 128 x
     131,072, two pairs each. The tall shape's plain version runs on the
-    CPU (its 131,072-row loop of small ops is faster there)."""
+    CPU (its 131,072-row loop of small ops is faster there). Every call
+    with moves also holds the walker (walk_full_cuda, over the kernel's
+    own outputs) to walk_full_plain on the same inputs (the host decode,
+    timed on the host clock with its moves copy), headers and runs
+    equal."""
     import torch
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.ops import pairwise as pw
@@ -1488,6 +1515,7 @@ def full_dp_against_plain(rng, dev, results, report):
                                             '' if need_moves else ' no moves')
         err = max(exact(tag + ' ' + n, a.cpu(), b.cpu())
                   for n, a, b in zip(('score', 'end_i', 'end_j'), got, want))
+        walk = None
         if need_moves:
             km, pm = got[3].cpu(), want[3].cpu()
             for b, (q, r) in enumerate(zip(qs, rs)):
@@ -1495,6 +1523,7 @@ def full_dp_against_plain(rng, dev, results, report):
                                      km[b, :len(q), :len(r) + 1],
                                      pm[b, :len(q), :len(r) + 1]))
             del km, pm
+            walk = walk_against_plain(got, configs[cname], tag)
         elif got[3] is not None:
             raise AssertionError(tag + ': moves returned without need_moves')
         del got, want
@@ -1519,11 +1548,51 @@ def full_dp_against_plain(rng, dev, results, report):
                        1e3 * ms / max(rows, 1), plain_ms, plain_dev,
                        '' if need_moves else ', its run with moves',
                        bound_ms(nbytes, ops)))
-    report['full_dp'] = [r for r in results if r['name'] == 'pairwise']
+        if walk is not None:
+            walk.update({'shape': shape, 'config': cname, 'band': band,
+                         'pairs': len(qs), 'n_pad': host[0].shape[1],
+                         'm_pad': host[2].shape[1],
+                         'summary': results[-1]['summary']})
+            results.append(walk)
+            line.append('  walk: %.3f ms (%d steps, %.4f us a step; plain '
+                        '%.1f ms on the host; bound %.6f ms)'
+                        % (walk['ms'], walk['steps'],
+                           1e3 * walk['ms'] / max(walk['longest'], 1),
+                           walk['plain_ms'], walk['bound_ms']))
+    report['full_dp'] = [r for r in results
+                         if r['name'] in ('pairwise', 'pairwise_walk')]
     log('full-matrix DP kernel (csrc/pairwise.cu) bit-equal to its plain '
-        'version on %d calls:' % len(line))
+        'version on %d calls, its walker (csrc/pairwise_walk.cu) equal to '
+        'its plain version on every call with moves:'
+        % len([r for r in results if r['name'] == 'pairwise']))
     for text in line:
         log('  ' + text)
+
+
+def walk_against_plain(fwd, config, tag):
+    """The full DP's walker over a forward's outputs (score, end_i, end_j,
+    moves on the card) against walk_full_plain: headers and runs equal.
+    Returns its result row: the launch's CUDA-event time (3 runs), the
+    plain version's host time, steps, the longest walk and the bound."""
+    from unicycler_tpu_torch.ops import pairwise as pw
+    score, end_i, end_j, moves = fwd
+    launch = lambda: pw.walk_full_cuda(moves, score, end_i, end_j, config)
+    launch()
+    ms, got = kernel_time(launch, reps=3)
+    t0 = time.time()
+    want = pw.walk_full_plain(moves, score, end_i, end_j, config)
+    plain_ms = 1e3 * (time.time() - t0)
+    g, w = pw.walk_records(got), pw.walk_records(want)
+    if g != w:
+        bad = [b for b, (x, y) in enumerate(zip(g, w)) if x != y]
+        raise AssertionError('%s: the walker differs from its plain version '
+                             'on pairs %s' % (tag, bad[:10]))
+    nbytes, ops, steps = walk_full_cost(got)
+    longest = max((sum(runs[0::2]) for _, runs in g), default=0)
+    return {'name': 'pairwise_walk', 'ms': ms, 'plain_ms': plain_ms,
+            'plain_device': 'cpu', 'bound_ms': bound_ms(nbytes, ops),
+            'bytes': nbytes, 'steps': steps, 'longest': longest,
+            'max_abs_err': 0}
 
 
 def bridging_workload(seed, genome=5_000_000, plasmid=100_000,
@@ -1717,17 +1786,25 @@ def phase_bridging(args, dev, report, workload=None):
             for t, sc, cf, bd, nc, out in row_calls)
     finally:
         tape_ops.build_row_launches = card_layout
-    # every full-matrix DP call again through its plain version on the
-    # card: every PairAlignment must be equal
+    # every full-matrix DP call again through the plain versions of the
+    # forward (on the card) and the walker (the host decode): every
+    # PairAlignment must be equal
     t1 = time.time()
-    kernel_route = pw.align_batch_device
+    kernel_route = pw.align_batch_device, pw.walk_full_cuda
     pw.align_batch_device = pw.align_batch_plain
+    pw.walk_full_cuda = pw.walk_full_plain
     try:
         pairs_same = sum(inner_pairs(q, r, **kw) == out
                          for q, r, kw, out in pair_calls)
     finally:
-        pw.align_batch_device = kernel_route
+        pw.align_batch_device, pw.walk_full_cuda = kernel_route
     pairs_replay_s = time.time() - t1
+    # the moves bytes the calls made: what a host decode copies back
+    moves_bytes = sum(
+        len(q) * max(max(len(x) for x in q), 1)
+        * (max(max(len(x) for x in r), 1) + 1)
+        for q, r, kw, _ in pair_calls if kw.get('need_cigar', True))
+    fetch_bytes = int(counters.get('full_dp.fetch_bytes', 0))
     digest = hashlib.sha256(json.dumps(sorted(
         (b.start_segment, b.end_segment, list(b.graph_path),
          round(float(b.quality), 6)) for b in bridges)).encode()).hexdigest()
@@ -1747,9 +1824,14 @@ def phase_bridging(args, dev, report, workload=None):
         '(the parent commit\'s): %d/%d give the same results; bridges '
         'sha256 %s' % (replay_same, len(row_calls), digest))
     log('full-matrix DP calls replayed through align_batch_plain on the '
-        'card: %d/%d give equal PairAlignments (%d pairs, %.1f s)'
+        'card and walk_full_plain: %d/%d give equal PairAlignments (%d '
+        'pairs, %.1f s)'
         % (pairs_same, len(pair_calls),
            sum(len(c[0]) for c in pair_calls), pairs_replay_s))
+    log('full DP fetched %d bytes to the host (full_dp.fetch_bytes); its '
+        'calls made %d bytes of moves (%.2f%%), which stayed on the card'
+        % (fetch_bytes, moves_bytes,
+           100.0 * fetch_bytes / max(moves_bytes, 1)))
     log('pairs: %d full-matrix DP, %d banded; %d alignments re-tallied, %d '
         'degenerate (empty CIGAR)'
         % (counters.get('dispatch.full_dp_pairs', 0),
@@ -1775,6 +1857,8 @@ def phase_bridging(args, dev, report, workload=None):
         'full_dp_calls': len(pair_calls),
         'full_dp_calls_same_as_plain': pairs_same,
         'full_dp_replay_s': pairs_replay_s,
+        'full_dp_fetch_bytes': fetch_bytes,
+        'full_dp_moves_bytes': moves_bytes,
         'bridges_sha256': digest}
     if missing:
         raise AssertionError('planted adjacencies without a bridge: %s'
@@ -1799,6 +1883,9 @@ def phase_bridging(args, dev, report, workload=None):
     if launches['pairwise'] <= 0:
         raise AssertionError('bridging did not launch the full-matrix DP '
                              'kernel')
+    if launches['pairwise_walk'] <= 0:
+        raise AssertionError('bridging did not walk the full-matrix DP on '
+                             'the card')
     if pairs_same != len(pair_calls):
         raise AssertionError('%d full-matrix DP calls differ from their '
                              'plain version' % (len(pair_calls) - pairs_same))
@@ -2505,7 +2592,7 @@ def phase_hybrid(args, dev, report, workload=None):
         raise AssertionError('the plasmid is not one circular contig '
                              'rotated as rotation.py says')
     for name in ('wavetape_fwd', 'wavetape_walk', 'tape_fwd', 'tape_walk',
-                 'pairwise'):
+                 'pairwise', 'pairwise_walk'):
         if launches[name] <= 0:
             raise AssertionError('the hybrid run did not launch %s' % name)
     return launches, per_kernel
@@ -2777,7 +2864,8 @@ def phase_shortread(args, dev, report, workload=None):
     if len(ladder) != 8 or missing:
         raise AssertionError('de Bruijn spans: %d k values, missing %s'
                              % (len(ladder), missing))
-    for name in ('wavetape_fwd', 'wavetape_walk', 'pairwise'):
+    for name in ('wavetape_fwd', 'wavetape_walk', 'pairwise',
+                 'pairwise_walk'):
         if launches[name] <= 0:
             raise AssertionError('the run did not launch %s' % name)
     return launches, per_kernel
@@ -3323,7 +3411,10 @@ def main():
                # the twin of a lax.scan device program, not of a Pallas
                # kernel: _align_single's row scan
                'pairwise': ('unicycler_tpu_torch/csrc/pairwise.cu',
-                            'unicycler_tpu/ops/pairwise.py:167')}
+                            'unicycler_tpu/ops/pairwise.py:167'),
+               # the twin of a host function: decode_traceback
+               'pairwise_walk': ('unicycler_tpu_torch/csrc/pairwise_walk.cu',
+                                 'unicycler_tpu/ops/pairwise.py:287')}
     # the row-tape kernels' summary row is phase 6's card layout at the
     # bridging path's W 4096 (the forward at the launch's own cluster
     # size); the wave kernels' the assembly's (the card's layout at W 512);
@@ -3351,7 +3442,7 @@ def main():
         # just before that path: retries (phase 5), bridging (phase 7:
         # the row-tape kernels and the full-matrix DP), the wavefront
         # entry (phase 9), the assembly (phase 10)
-        on_bridging = kname.startswith('tape_') or kname == 'pairwise'
+        on_bridging = kname.startswith(('tape_', 'pairwise'))
         if kname in retry_launches:
             n_launch = retry_launches[kname]
         elif on_bridging:
@@ -3368,8 +3459,10 @@ def main():
                  'bound_by': 'operations' if row['bound_ms'] * 1e-3
                  > row['bytes'] / PEAK_BYTES_S else 'bytes',
                  'library_ms': None}
-        if kname == 'pairwise':
-            entry['replaces_kind'] = 'lax.scan device program, not Pallas'
+        if kname.startswith('pairwise'):
+            entry['replaces_kind'] = (
+                'lax.scan device program, not Pallas' if kname == 'pairwise'
+                else 'host function (decode_traceback), not Pallas')
             entry['shape'] = {k: row[k] for k in ('pairs', 'n_pad', 'm_pad',
                                                   'config', 'band')}
             entry['assembly_launches'] = asm_launches.get(kname, 0)

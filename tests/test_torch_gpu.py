@@ -825,6 +825,74 @@ def test_gpu_full_dp_bit_equal_to_plain(cfg, shape, band):
                            pm[b, :len(q), :len(r) + 1]), b
 
 
+@pytest.mark.parametrize('shape,band', [
+    ('consensus', None), ('consensus', 20), ('mixed', None), ('mixed', 1000),
+    ('empty', None), ('wide', None), ('tall', None)])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_full_dp_walker_equal_to_plain(cfg, shape, band):
+    """csrc/pairwise_walk.cu over the forward kernel's outputs against
+    walk_full_plain (the host decode) on the same inputs: every pair's
+    header (score, ends, run count, starts) and runs equal."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import pairwise as pw
+    from unicycler_tpu_torch.ops.encode import pack_pairs
+    qs, rs = _full_dp_pairs(shape)
+    host = list(pack_pairs(qs, rs, max(max(len(q) for q in qs), 1),
+                           max(max(len(r) for r in rs), 1)))
+    if band is not None:
+        diffs = host[3].astype(np.int64) - host[1].astype(np.int64)
+        host += [(-band - np.maximum(0, diffs)).astype(np.int32),
+                 (band + np.maximum(0, -diffs)).astype(np.int32)]
+    up = [torch.from_numpy(x).to(dev) for x in host]
+    config = pw.AlignConfig(*CONFIGS[cfg])
+    score, end_i, end_j, moves = pw.align_batch_device(
+        *up[:4], pw.Scoring(*SCORING_T), config, True, *up[4:])
+    before = cuda_lib.LAUNCHES['pairwise_walk']
+    got = pw.walk_full_cuda(moves, score, end_i, end_j, config)
+    assert cuda_lib.LAUNCHES['pairwise_walk'] == before + 1
+    want = pw.walk_full_plain(moves, score, end_i, end_j, config)
+    assert got.shape == want.shape and got.device == want.device
+    assert pw.walk_records(got) == pw.walk_records(want)
+
+
+@pytest.mark.parametrize('band', [None, 20])
+@pytest.mark.parametrize('cfg', sorted(CONFIGS))
+def test_gpu_align_pairs_matches_cpu_route(cfg, band):
+    """align_pairs on the card (forward and walk on the card, one fetch of
+    the runs) gives the CPU route's PairAlignments, cigars as the same
+    lists, and copies no moves to the host."""
+    dev = _cuda()
+    from unicycler_tpu_torch.ops import cuda_lib
+    from unicycler_tpu_torch.ops import pairwise as pw
+    from unicycler_tpu_torch.utils import trace
+    qs, rs = _full_dp_pairs('mixed')
+    args = (pw.Scoring(*SCORING_T), pw.AlignConfig(*CONFIGS[cfg]))
+    cuda_lib.reset_launches()
+    trace.reset()
+    trace.enable()
+    try:
+        got = pw.align_pairs(qs, rs, *args, band=band, device=dev)
+    finally:
+        trace.disable()
+    fetched = trace.as_dict()['counters']['full_dp.fetch_bytes']
+    trace.reset()
+    assert cuda_lib.LAUNCHES['pairwise'] == 1
+    assert cuda_lib.LAUNCHES['pairwise_walk'] == 1
+    want = pw.align_pairs(qs, rs, *args, band=band, device='cpu')
+    assert got == want
+    assert all(type(g.cigar) is list for g in got)
+    n_pad, m_pad = max(len(q) for q in qs), max(len(r) for r in rs)
+    assert fetched == 4 * len(qs) * (pw.WALK_HEAD
+                                     + 2 * pw.walk_ops(n_pad, m_pad))
+    assert fetched < 0.05 * len(qs) * n_pad * (m_pad + 1)
+    bare = pw.align_pairs(qs, rs, *args, need_cigar=False, band=band,
+                          device=dev)
+    assert cuda_lib.LAUNCHES['pairwise_walk'] == 1
+    assert [(p.score, p.s1_end, p.s2_end) for p in bare] == \
+        [(p.score, p.s1_end, p.s2_end) for p in want]
+
+
 def test_gpu_align_pairs_from_eight_threads_matches_serial():
     """Bridging finalises up to 8 bridges on threads, each launching the
     full-matrix DP on the caller's stream: the same calls from 8 threads

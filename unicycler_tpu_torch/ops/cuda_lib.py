@@ -30,14 +30,14 @@ CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_ROOT = os.path.join(_PKG_DIR, '_build')
 SOURCES = ('wavetape_fwd.cu', 'wavetape_walk.cu', 'banded.cu', 'tape_fwd.cu',
            'tape_walk.cu', 'banded_walk.cu', 'wavefront_fwd.cu',
-           'pairwise.cu')
+           'pairwise.cu', 'pairwise_walk.cu')
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 NVCC_FLAGS = ARCH_FLAGS + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                            '-Xptxas', '-v', '-lineinfo']
 
 LAUNCHES = {'wavetape_fwd': 0, 'wavetape_walk': 0, 'banded': 0,
             'tape_fwd': 0, 'tape_walk': 0, 'banded_walk': 0,
-            'wavefront_fwd': 0, 'pairwise': 0}
+            'wavefront_fwd': 0, 'pairwise': 0, 'pairwise_walk': 0}
 
 TIMINGS = None
 
@@ -158,9 +158,15 @@ _SIGNATURES = {
     # match, mismatch, open, ext, free_start_s1, free_start_s2, stream
     'wavefront_fwd_launch': [_P] * 8 + [_I] * 16 + [_P],
     # q, r, n_acts, m_acts, lower, upper, moves, score, end_i, end_j,
-    # scratch, B, n_pad, m_pad, match, mismatch, open, ext, free_start_s1,
-    # free_start_s2, free_end_s1, free_end_s2, stream
-    'pairwise_launch': [_P] * 11 + [_I] * 11 + [_P],
+    # scratch, caps, B, n_pad, m_pad, match, mismatch, open, ext,
+    # free_start_s1, free_start_s2, free_end_s1, free_end_s2, stream
+    'pairwise_launch': [_P] * 12 + [_I] * 11 + [_P],
+    # pairwise_launch's arguments, then rows a thread, threads a block,
+    # blocks a cluster, stream
+    'pairwise_launch_plan': [_P] * 12 + [_I] * 14 + [_P],
+    # moves, score, end_i, end_j, out, B, n_pad, m_pad, the moves' row
+    # stride, free_start_s1, free_start_s2, stream
+    'pairwise_walk_launch': [_P] * 5 + [_I] * 6 + [_P],
 }
 
 
