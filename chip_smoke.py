@@ -1877,7 +1877,9 @@ def phase_bridging(args, dev, report, workload=None):
                              'row layout' % (len(row_calls) - replay_same))
     if counters.get('tape.short_launches', 0):
         raise AssertionError('row launches below min(tasks, 132) tracks that '
-                             'the moves budget could hold')
+                             'the moves budget could hold: %s' % ', '.join(
+                                 sorted(k for k in counters
+                                        if k.startswith('tape.short.'))))
     if counters.get('dispatch.full_dp_pairs', 0) <= 0:
         raise AssertionError('bridging did not run the full-matrix DP')
     if launches['pairwise'] <= 0:
@@ -2237,8 +2239,7 @@ def phase_assembly(args, dev, report, workload=None):
         'wall)' % (100 * busy * 1e-3 / wall))
     log('counters: %s' % json.dumps(
         {k: v for k, v in sorted(counters.items())
-         if k.startswith(('polish.', 'retry.', 'tape.retry', 'wave.',
-                          'tape.fetch'))}))
+         if k.startswith(('retry.', 'tape.retry', 'wave.', 'tape.fetch'))}))
     log('polish: mapping quality by round %s (best round %d); %d CIGARs '
         're-tallied, %d off their score'
         % (['%.2f' % x for x in qualities], best, tally['checked'],

@@ -20,6 +20,8 @@ package's host route runs (score pass, winners, traceback pass on the
 bucketed row DP).
 """
 
+import contextvars
+import os
 from typing import List
 
 import numpy as np
@@ -32,6 +34,7 @@ from ..ops import banded as banded_ops
 from ..ops import minimizer as mz
 from ..ops import pairwise as pw
 from ..ops.encode import revcomp_codes
+from ..utils import trace
 from .alignment import Alignment
 
 # Precomputed random-alignment score distributions for known scoring schemes
@@ -98,7 +101,6 @@ def _dump_seed_debug(debug_dir, read, level, clusters):
     candidate cluster's span, strand, and chained anchor dots (the role
     of the reference aligner's k-mer cloud / trace dot dumps,
     ref src/semi_global_align.cpp:654-734)."""
-    import os
     os.makedirs(debug_dir, exist_ok=True)
     safe = ''.join(c if c.isalnum() or c in '._-' else '_'
                    for c in read.name)[:80]
@@ -120,15 +122,19 @@ def _dump_seed_debug(debug_dir, read, level, clusters):
 _SEED_POOL = None
 
 
+def seed_threads():
+    """Worker count of the seeding pool (UNICYCLER_TPU_SEED_THREADS,
+    default 3)."""
+    return max(1, int(os.environ.get('UNICYCLER_TPU_SEED_THREADS', '3')))
+
+
 def _seed_pool():
     """Shared seeding executor (created on first use, reused across
-    align_jobs calls; worker count via UNICYCLER_TPU_SEED_THREADS)."""
+    align_jobs calls; seed_threads() workers)."""
     global _SEED_POOL
     if _SEED_POOL is None:
-        import os as _os
         from concurrent.futures import ThreadPoolExecutor
-        n = max(1, int(_os.environ.get('UNICYCLER_TPU_SEED_THREADS', '3')))
-        _SEED_POOL = ThreadPoolExecutor(max_workers=n)
+        _SEED_POOL = ThreadPoolExecutor(max_workers=seed_threads())
     return _SEED_POOL
 
 
@@ -189,10 +195,11 @@ def _make_tasks(read, ref_list, clusters, band, fine_k=10) -> List[_Task]:
             q = read.codes
         r_window = ref.codes[start:end]
         coarse_ref = (cl.anchors_ref - start).astype(np.int64)
-        fine_read, fine_ref = mz.collect_common_kmers(
-            q, ref.codes, cl.anchors_read.astype(np.int64), coarse_ref,
-            k=fine_k, max_dist=settings.FINE_ANCHOR_MAX_DIST,
-            max_occ=settings.FINE_ANCHOR_MAX_OCC, window=(start, end))
+        with trace.span('fine_anchors'):
+            fine_read, fine_ref = mz.collect_common_kmers(
+                q, ref.codes, cl.anchors_read.astype(np.int64), coarse_ref,
+                k=fine_k, max_dist=settings.FINE_ANCHOR_MAX_DIST,
+                max_occ=settings.FINE_ANCHOR_MAX_OCC, window=(start, end))
         if len(fine_read) >= 3:
             a_read, a_ref = fine_read, fine_ref
         else:
@@ -262,7 +269,6 @@ def _dispatch_job_device(job, handles, device):
     so calling this for job N+1 overlaps its host seeding with job N's
     device compute. Every dispatched (chunk_tasks, handle) is appended to
     `handles` too, in dispatch order."""
-    from ..utils import trace
     ref_codes = [r.codes for r in job.references]
     for level in range(0, job.sensitivity_level + 1):
         k = settings.SEED_KMER_SIZES[level]
@@ -302,14 +308,19 @@ def _dispatch_job_device(job, handles, device):
         # GIL. Results are consumed IN ORDER so chunk packing and dispatch
         # order stay deterministic.
         def seed_one(read):
-            clusters = index.lookup(read.codes)
-            if job.debug_dir is not None:
-                _dump_seed_debug(job.debug_dir, read, level, clusters)
-            return _make_tasks(read, job.references,
-                               clusters[:max_traces], band)
+            with trace.span('seed_read'):
+                with trace.span('seed_lookup'):
+                    clusters = index.lookup(read.codes)
+                if job.debug_dir is not None:
+                    _dump_seed_debug(job.debug_dir, read, level, clusters)
+                return _make_tasks(read, job.references,
+                                   clusters[:max_traces], band)
 
+        # each read runs in a copy of this thread's context, so that its
+        # spans name the span open here as their parent
         pool = _seed_pool()
-        futures = [pool.submit(seed_one, read) for read in live_reads]
+        futures = [pool.submit(contextvars.copy_context().run, seed_one,
+                               read) for read in live_reads]
         for fut in futures:
             with trace.span('seed_and_tasks'):
                 new_tasks = fut.result()
@@ -389,13 +400,7 @@ def _build_refine(job):
 
 
 def _apply_refined(job, refine_alignments, refined):
-    from ..utils import trace
     for alignment, pa2 in zip(refine_alignments, refined):
-        trace.add('refine.tasks')
-        trace.add('refine.rows', len(alignment._task.banded.q))
-        if pa2.score > alignment._pair.score:
-            trace.add('refine.improved')
-            trace.add('refine.gain', pa2.score - alignment._pair.score)
         if pa2.score > alignment._pair.score:
             task = alignment._task
             better = Alignment(read=task.read, ref=task.ref,
@@ -426,7 +431,6 @@ def align_jobs(jobs, device=None):
     filter and the refine dispatch (job N's refine kernels run while job
     N+1 decodes); (D) the refine results are collected and the final
     filters applied. With device='cpu' each job takes the host route."""
-    from ..utils import trace
     dev = resolve_device(device)
     jobs = [j for j in jobs if j.reads]
     for job in jobs:
@@ -491,7 +495,6 @@ def align_jobs(jobs, device=None):
 def _align_job_host(job, device):
     """CPU route: move matrices are materialised per candidate, so a
     score-only prefilter pass still pays; everything is synchronous."""
-    from ..utils import trace
     ref_codes = [r.codes for r in job.references]
     for level in range(0, job.sensitivity_level + 1):
         k = settings.SEED_KMER_SIZES[level]
@@ -503,7 +506,8 @@ def _align_job_host(job, device):
             for read in job.reads:
                 if read.get_length() < job.min_align_length:
                     continue
-                clusters = index.lookup(read.codes)
+                with trace.span('seed_lookup'):
+                    clusters = index.lookup(read.codes)
                 if job.debug_dir is not None:
                     _dump_seed_debug(job.debug_dir, read, level, clusters)
                 max_traces = settings.MAX_LINE_TRACE_COUNTS[level]
@@ -610,7 +614,6 @@ def semi_global_align_long_reads(references, ref_fasta, read_dict, read_names,
 
     debug_dir = None
     if verbosity >= 4 and sam_filename:
-        import os
         debug_dir = os.path.join(os.path.dirname(sam_filename),
                                  'seed_debug')
 

@@ -97,8 +97,6 @@ def polish_round(unitig_graph, reads, scoring, multi_place=False,
         results = banded_ops.align_banded(tasks, scoring,
                                           config=pw.SEMI_GLOBAL, band=200,
                                           need_cigar=True, device=device)
-    trace.add('polish.alignments', len(tasks))
-    trace.add('polish.query_bases', sum(len(t.q) for t in tasks))
     with trace.span('votes'):
         return _vote(unitig_graph, task_meta, results, ref_by_name,
                      min_agreement, collect_votes, mapping_quality,
@@ -110,7 +108,7 @@ def _vote(unitig_graph, task_meta, results, ref_by_name, min_agreement,
     """Votes and consensus call of a polish round (polish_round's tail)."""
     # Vote accumulation per unitig — vectorised run expansion
     # (ops/votes.py) instead of per-base Python dict walks.
-    from ..ops.votes import ColumnVotes
+    from ..ops.votes import ColumnVotes, left_align_indels
     votes = {name: ColumnVotes(seg.get_length())
              for name, seg in unitig_graph.segments.items()}
 
@@ -128,14 +126,25 @@ def _vote(unitig_graph, task_meta, results, ref_by_name, min_agreement,
         # otherwise split gap votes across columns inside duplications /
         # homopolymers and assembly insertions survive every round
         # (ops/votes.left_align_indels docstring has the measurement).
-        from ..ops.votes import left_align_indels
-        runs = left_align_indels(pa.cigar, codes,
-                                 ref_by_name[ref_name].codes,
-                                 pa.s1_start, win_start + pa.s2_start)
-        votes[ref_name].add_alignment(runs, pa.s1_start,
-                                      win_start + pa.s2_start, codes, qv)
+        with trace.span('left_align'):
+            runs = left_align_indels(pa.cigar, codes,
+                                     ref_by_name[ref_name].codes,
+                                     pa.s1_start, win_start + pa.s2_start)
+        with trace.span('vote_add'):
+            votes[ref_name].add_alignment(runs, pa.s1_start,
+                                          win_start + pa.s2_start, codes,
+                                          qv)
 
-    # Consensus call per unitig.
+    with trace.span('consensus_call'):
+        polished = _consensus(unitig_graph, votes, min_agreement)
+    if collect_votes:
+        return polished, mapping_quality, dict(unitig_depths), votes
+    return polished, mapping_quality, dict(unitig_depths)
+
+
+def _consensus(unitig_graph, votes, min_agreement):
+    """Consensus call per unitig from the round's column votes: unitig
+    name -> polished sequence."""
     from ..io.fastx import decode_sequence
     polished = {}
     for name, seg in unitig_graph.segments.items():
@@ -189,9 +198,7 @@ def _vote(unitig_graph, task_meta, results, ref_by_name, min_agreement,
                 prev = p
             out.append(chars[prev:][keep[prev:]].tobytes().decode())
             polished[name] = ''.join(out)
-    if collect_votes:
-        return polished, mapping_quality, dict(unitig_depths), votes
-    return polished, mapping_quality, dict(unitig_depths)
+    return polished
 
 
 def polish_unitigs(unitig_graph, reads, scoring_scheme, hybrid,

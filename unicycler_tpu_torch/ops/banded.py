@@ -422,8 +422,7 @@ def _wavetape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
     runs) and queue their kernels (asynchronously on CUDA). Returns a
     pending list of (WaveLaunch, [device outputs]).
 
-    Counters: wave.launches, wave.tracks, wave.groups (real groups, the
-    forward kernel's work) and wave.padded_groups. A launch with fewer
+    Counters: wave.launches and wave.tracks. A launch with fewer
     than min(tasks, FULL_CARD_TRACKS) tracks counts in wave.short_launches
     and is named by a wave.short.* counter, unless the budget forced it:
     the moves budget cannot hold that many of its tasks, or it split the
@@ -462,8 +461,6 @@ def _wave_queue(launches, scoring, config, W, need_cigar, device):
     for tp in launches:
         trace.add('wave.launches')
         trace.add('wave.tracks', tp.q_tape.shape[0])
-        trace.add('wave.groups', int((tp.lastg.max(1) + 1).sum()))
-        trace.add('wave.padded_groups', tp.q_tape.shape[0] * tp.NG)
         up = [_upload(a, device) for a in forward_inputs(tp)]
         score, end_i, end_j, moves, db_rows = wavetape_forward(
             *up, scoring=scoring, config=config, W=W, need_moves=need_cigar)
@@ -489,11 +486,10 @@ def _tape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
     run the launches the card runs) and queue their kernels
     (asynchronously on CUDA). Same pending contract as _wavetape_dispatch.
 
-    Counters: tape.launches, tape.tracks, tape.rows (real rows, the
-    forward kernel's work), tape.padded_rows and tape.rows.W<W> (padded
-    rows by band). A launch with fewer than min(tasks, FULL_CARD_TRACKS)
+    Counters: tape.launches, tape.tracks and tape.rows.W<W> (padded rows
+    by band). A launch with fewer than min(tasks, FULL_CARD_TRACKS)
     tracks counts in tape.short_launches and is named by a tape.short.*
-    counter, unless the budget forced it (then tape.budget_short.*)."""
+    counter, unless the budget forced it."""
     from . import tape, wavetape
     from ..utils import trace
     budget = wavetape.MOVES_BUDGET
@@ -506,10 +502,8 @@ def _tape_dispatch(live_tasks, scoring, config, W, need_cigar, device):
         if tracks < want:
             name = 'W%d.L%d.tracks%d.of%d' % (W, tp.L, tracks,
                                                len(live_tasks))
-            if tape.row_moves_bytes(want, tp.L_real, W) > budget \
-                    or len(live_tasks) < want * len(launches):
-                trace.add('tape.budget_short.' + name)
-            else:
+            if tape.row_moves_bytes(want, tp.L_real, W) <= budget \
+                    and len(live_tasks) >= want * len(launches):
                 trace.add('tape.short_launches')
                 trace.add('tape.short.' + name)
     return _row_queue(launches, scoring, config, W, need_cigar, device)
@@ -527,9 +521,6 @@ def _row_queue(launches, scoring, config, W, need_cigar, device):
     for tp in launches:
         trace.add('tape.launches')
         trace.add('tape.tracks', tp.qf.shape[0])
-        trace.add('tape.rows', 32 * int((tp.last_slot.max(1) + 1).clip(
-            min=0).sum()))
-        trace.add('tape.padded_rows', tp.qf.shape[0] * tp.L)
         trace.add('tape.rows.W%d' % W, tp.L)
         up = [_upload(a, device) for a in forward_inputs(tp)]
         score, end_i, end_j, moves, (c_rel, jr_rows) = tape_forward(
@@ -551,10 +542,17 @@ def _row_queue(launches, scoring, config, W, need_cigar, device):
 
 
 def _tape_collect(pending):
-    """Copy a pending list's outputs to the host."""
+    """Copy a pending list's outputs to the host: first wait for the
+    cards that computed them (tape_wait), then copy (tape_copy)."""
     from ..utils import trace
     with trace.span('tape_fetch'):
-        grouped = [[x.cpu().numpy() for x in outs] for _, outs in pending]
+        with trace.span('tape_wait'):
+            for dev in {x.device for _, outs in pending for x in outs
+                        if x.is_cuda}:
+                torch.cuda.synchronize(dev)
+        with trace.span('tape_copy'):
+            grouped = [[x.cpu().numpy() for x in outs]
+                       for _, outs in pending]
     trace.add('tape.fetch_bytes', sum(a.nbytes for g in grouped for a in g))
     return grouped
 
