@@ -236,7 +236,7 @@ class _Graph(object):
         self.segments = segments
 
 
-def test_polish_round_splits_the_votes(tracing):
+def _polish_round():
     from unicycler_tpu_torch import synth
     from unicycler_tpu_torch.align.scoring import AlignmentScoringScheme
     from unicycler_tpu_torch.asm.polish import polish_round
@@ -249,12 +249,42 @@ def test_polish_round_splits_the_votes(tracing):
         _Graph({'1': _Segment(genome)}), reads,
         AlignmentScoringScheme('3,-6,-5,-2').to_ops(), device='cpu')
     assert set(polished) == {'1'}
-    spans = trace.as_dict()['spans']
+    return trace.as_dict()
+
+
+def test_polish_round_splits_the_votes(tracing):
+    spans = _polish_round()['spans']
     assert spans['votes/left_align']['calls'] >= 1
     assert spans['votes/vote_add']['calls'] == \
         spans['votes/left_align']['calls']
     assert spans['votes/consensus_call']['calls'] == 1
     assert spans['votes']['calls'] == 1
+
+
+def test_polish_round_counts_how_its_alignments_were_voted(tracing,
+                                                         monkeypatch):
+    """votes.native_alignments with the native library, one batch a
+    round; votes.python_alignments without it, one left_align and one
+    vote_add span an alignment: the same alignments either way."""
+    from unicycler_tpu_torch import native
+    if native.get_lib() is None:
+        pytest.skip('no C++ toolchain for the native library')
+    batch = _polish_round()
+    assert batch['spans']['votes/left_align']['calls'] == \
+        batch['spans']['votes/vote_add']['calls'] == \
+        batch['spans']['votes/consensus_call']['calls'] == 1
+    trace.reset()
+    monkeypatch.setattr(native, 'get_lib', lambda: None)
+    fallback = _polish_round()
+    voted = fallback['spans']['votes/left_align']['calls']
+    assert voted >= 2
+    assert fallback['spans']['votes/vote_add']['calls'] == voted
+
+    def counted(d):
+        return {k: v for k, v in d['counters'].items()
+                if k.startswith('votes.')}
+    assert counted(fallback) == {'votes.python_alignments': voted}
+    assert counted(batch) == {'votes.native_alignments': voted}
 
 
 @pytest.mark.gpu

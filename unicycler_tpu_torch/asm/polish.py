@@ -105,13 +105,14 @@ def polish_round(unitig_graph, reads, scoring, multi_place=False,
 
 def _vote(unitig_graph, task_meta, results, ref_by_name, min_agreement,
           collect_votes, mapping_quality, unitig_depths):
-    """Votes and consensus call of a polish round (polish_round's tail)."""
-    # Vote accumulation per unitig — vectorised run expansion
-    # (ops/votes.py) instead of per-base Python dict walks.
-    from ..ops.votes import ColumnVotes, left_align_indels
+    """Votes and consensus call of a polish round (polish_round's tail).
+    Every alignment is voted in one batch (ops/votes.add_batch, native);
+    without the native library, one alignment at a time in numpy."""
+    from ..ops.votes import ColumnVotes, add_batch, left_align_indels
     votes = {name: ColumnVotes(seg.get_length())
              for name, seg in unitig_graph.segments.items()}
 
+    alignments = []
     for (ref_name, win_start, read, a), pa in zip(task_meta, results):
         if pa is None or pa.score <= 0 or not pa.cigar:
             continue
@@ -121,19 +122,26 @@ def _vote(unitig_graph, task_meta, results, ref_by_name, min_agreement,
             codes = revcomp_codes(codes)
             qual = qual[::-1]
         qv = np.frombuffer(qual.encode()[:len(codes)].ljust(
-            len(codes), b'\x00'), np.uint8).astype(np.int64)
-        # Normalise indel placement before voting: equivalent alignments
-        # otherwise split gap votes across columns inside duplications /
-        # homopolymers and assembly insertions survive every round
-        # (ops/votes.left_align_indels docstring has the measurement).
-        with trace.span('left_align'):
-            runs = left_align_indels(pa.cigar, codes,
-                                     ref_by_name[ref_name].codes,
-                                     pa.s1_start, win_start + pa.s2_start)
-        with trace.span('vote_add'):
-            votes[ref_name].add_alignment(runs, pa.s1_start,
-                                          win_start + pa.s2_start, codes,
-                                          qv)
+            len(codes), b'\x00'), np.uint8)
+        alignments.append((ref_name, pa.cigar, pa.s1_start,
+                           win_start + pa.s2_start, codes, qv))
+
+    # Normalise indel placement before voting: equivalent alignments
+    # otherwise split gap votes across columns inside duplications /
+    # homopolymers and assembly insertions survive every round
+    # (ops/votes.left_align_indels docstring has the measurement).
+    refs = {name: ref_by_name[name].codes for name in votes}
+    if add_batch(votes, alignments, refs):
+        trace.add('votes.native_alignments', len(alignments))
+    else:
+        for ref_name, cigar, i0, j0, codes, qv in alignments:
+            with trace.span('left_align'):
+                runs = left_align_indels(cigar, codes, refs[ref_name],
+                                         i0, j0)
+            with trace.span('vote_add'):
+                votes[ref_name].add_alignment(runs, i0, j0, codes,
+                                              qv.astype(np.int64))
+        trace.add('votes.python_alignments', len(alignments))
 
     with trace.span('consensus_call'):
         polished = _consensus(unitig_graph, votes, min_agreement)
@@ -172,20 +180,21 @@ def _consensus(unitig_graph, votes, min_agreement):
         else:
             chars = np.where(covered, best_arr, orig_arr)
             keep = ~covered | (gap <= best_count)
+        # an insertion before column b + 1 is a candidate only where more
+        # than half of the reads covering b vote for one (and, with
+        # min_agreement, at least that share of them)
+        n_ins = v.ins_counts()[1:]
+        cov_b = np.maximum(1, cover)
+        take = 2 * n_ins > cov_b
+        if min_agreement != 0.0:
+            take &= n_ins >= min_agreement * cov_b
+        cols = np.nonzero(take)[0] + 1
         accepted = []
-        for p, ins in v.ins.items():
-            b = p - 1
-            if not (0 <= b < n):
-                continue
-            texts = [s for s, _ in ins]
-            cov_b = max(1, int(cover[min(b, n - 1)]))
-            if 2 * len(texts) > cov_b and \
-                    (min_agreement == 0.0
-                     or len(texts) >= min_agreement * cov_b):
-                counts = Counter(texts)
-                best_ins, cnt = counts.most_common(1)[0]
-                if 2 * cnt > len(texts) or len(counts) == 1:
-                    accepted.append((p, best_ins))
+        for p, texts in zip(cols.tolist(), v.ins_texts(cols)):
+            counts = Counter(texts)
+            best_ins, cnt = counts.most_common(1)[0]
+            if 2 * cnt > len(texts) or len(counts) == 1:
+                accepted.append((p, best_ins))
         if not accepted:
             polished[name] = chars[keep].tobytes().decode()
         else:

@@ -1,6 +1,7 @@
 """Host C++ helpers, built on demand with g++ and bound via ctypes: the
 serial banded traceback walk, minimiser sketching, windowed seed search
-and LIS chaining that sit between the device kernels and Python. The
+and LIS chaining that sit between the device kernels and Python, and the
+polish round's batched votes (votes.cpp, the port's own). The other
 sources are copies of unicycler_tpu/native/*.cpp; the library is built
 into this directory (git-ignored) at first use."""
 
@@ -18,7 +19,7 @@ _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SO_PATH = os.path.join(_SRC_DIR, 'libunicycler_tpu_torch_native.so')
 _HASH_PATH = os.path.join(_SRC_DIR, '.build_hash')
 _SOURCES = ['cigar_decode.cpp', 'lis.cpp', 'seedsearch.cpp',
-            'sketch.cpp']
+            'sketch.cpp', 'votes.cpp']
 
 
 def _source_hash():
@@ -93,6 +94,10 @@ def get_lib():
     lib.sketch_minimizers.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.left_align_batch.restype = ctypes.c_int64
+    lib.left_align_batch.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 13
+    lib.vote_batch.restype = ctypes.c_int64
+    lib.vote_batch.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 19
     _LIB = lib
     return _LIB
 
