@@ -102,8 +102,8 @@ def map_reads(references, reads, k=15, w=10, filter_by_minimisers=False,
     ref_lengths = [r.get_length() for r in references]
     index = mz.MinimizerIndex([r.codes for r in references], k=k, w=w)
     alignments = defaultdict(list)
-    # one batched sketch+probe for the whole read set (identical output
-    # to per-read lookup; the per-read overhead dominated polish rounds)
+    # one lookup of the whole read set (a native pass, identical output
+    # to per-read lookup)
     all_clusters = index.lookup_many([r.codes for r in reads])
     for read, clusters in zip(reads, all_clusters):
         hits = map_read(index, read, ref_names, ref_lengths, k,

@@ -1,7 +1,8 @@
 """Host C++ helpers, built on demand with g++ and bound via ctypes: the
 serial banded traceback walk, minimiser sketching, windowed seed search
 and LIS chaining that sit between the device kernels and Python, and the
-polish round's batched votes (votes.cpp, the port's own). The other
+port's own batched passes: the polish round's votes (votes.cpp) and the
+minimiser lookup of a read set (seedmap.cpp). The other
 sources are copies of unicycler_tpu/native/*.cpp; the library is built
 into this directory (git-ignored) at first use."""
 
@@ -18,7 +19,7 @@ _BUILD_FAILED = False
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SO_PATH = os.path.join(_SRC_DIR, 'libunicycler_tpu_torch_native.so')
 _HASH_PATH = os.path.join(_SRC_DIR, '.build_hash')
-_SOURCES = ['cigar_decode.cpp', 'lis.cpp', 'seedsearch.cpp',
+_SOURCES = ['cigar_decode.cpp', 'lis.cpp', 'seedmap.cpp', 'seedsearch.cpp',
             'sketch.cpp', 'votes.cpp']
 
 
@@ -98,6 +99,18 @@ def get_lib():
     lib.left_align_batch.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 13
     lib.vote_batch.restype = ctypes.c_int64
     lib.vote_batch.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 19
+    lib.seedmap_build_table.restype = None
+    lib.seedmap_build_table.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int]
+    lib.seedmap_lookup.restype = ctypes.c_void_p
+    lib.seedmap_lookup.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_int]
+        + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+           ctypes.c_int, ctypes.c_void_p])
+    lib.seedmap_fetch.restype = None
+    lib.seedmap_fetch.argtypes = [ctypes.c_void_p] * 4
     _LIB = lib
     return _LIB
 
@@ -211,6 +224,59 @@ def native_sketch(codes, k, w):
                               out_hash.ctypes.data, out_pos.ctypes.data,
                               out_strand.ctypes.data)
     return out_hash[:m], out_pos[:m], out_strand[:m]
+
+
+def native_seed_table(hashes):
+    """The probe table of a sorted minimiser hash array: (table, bits),
+    2 << bits uint64 words holding each distinct hash with the start and
+    count of its run (exactly searchsorted's left and right bounds), at
+    most half full. None if the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    hashes = np.ascontiguousarray(hashes, dtype=np.uint64)
+    n = len(hashes)
+    if n >= 1 << 32:
+        return None     # a run's start and count are held in 32 bits
+    distinct = 1 + int(np.count_nonzero(hashes[1:] != hashes[:-1])) \
+        if n else 0
+    bits = max(1, (2 * distinct - 1).bit_length())
+    table = np.empty(2 << bits, np.uint64)
+    lib.seedmap_build_table(hashes.ctypes.data, n, table.ctypes.data, bits)
+    return table, bits
+
+
+def native_seedmap(joined, offsets, lengths, probe, k, w, radius,
+                   min_hits):
+    """Minimiser lookup of every read in one native pass (seedmap.cpp).
+    `joined` holds the reads' int8 codes at `offsets` for `lengths`;
+    `probe` is (table, bits, ref_ids int32, positions int32, strands
+    int8) of the index. Returns (records (n, 9) int64: read index, ref
+    id, reverse, read start, read end, ref start, ref end, hits, anchor
+    offset; anchors_read int32; anchors_ref int32), or None if the
+    library is unavailable or k >= 32."""
+    lib = get_lib()
+    if lib is None or k >= 32:
+        return None
+    table, bits, ref_ids, positions, strands = probe
+    joined = np.ascontiguousarray(joined, dtype=np.int8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    counts = np.zeros(2, np.int64)
+    handle = lib.seedmap_lookup(
+        joined.ctypes.data, offsets.ctypes.data, lengths.ctypes.data,
+        len(lengths), table.ctypes.data, int(bits), ref_ids.ctypes.data,
+        positions.ctypes.data, strands.ctypes.data, int(k), int(w),
+        int(radius), int(min_hits), _N_SEARCH_THREADS, counts.ctypes.data)
+    try:
+        out = (np.empty((int(counts[0]), 9), np.int64),
+               np.empty(int(counts[1]), np.int32),
+               np.empty(int(counts[1]), np.int32))
+    except MemoryError:
+        lib.seedmap_fetch(handle, None, None, None)     # only frees it
+        raise
+    lib.seedmap_fetch(handle, *(a.ctypes.data for a in out))
+    return out
 
 
 def native_lis(values):

@@ -7,14 +7,18 @@ required (SURVEY.md §7.3): downstream banded DP only needs candidate
 reference windows plus a rough diagonal corridor, which diagonal-binned
 minimiser hits provide directly.
 
-Implementation is numpy (host): reference sets are a few MB, index build is
-a sort, and queries are searchsorted lookups — all vectorised. The output
-feeds the device banded-DP kernel in ops/banded.py.
+Host code: reference sets are a few MB and the index build is a sort. A
+lookup runs as one native pass over its reads (native/seedmap.cpp) with a
+numpy formulation as the fallback. The output feeds the device banded-DP
+kernel in ops/banded.py.
 """
 
+import threading
 from typing import List, NamedTuple
 
 import numpy as np
+
+from ..utils import trace
 
 # minimap-style invertible hash on 2k-bit integers (public-domain finaliser
 # mix, same family as minimap's hash64).
@@ -191,6 +195,7 @@ class SeedHitCluster(NamedTuple):
 
 
 _INDEX_CACHE = {}
+_PROBE_LOCK = threading.Lock()
 
 
 def get_cached_index(ref_codes_list, k, w):
@@ -256,7 +261,86 @@ class MinimizerIndex(object):
         Hits are binned by diagonal per (ref, relative strand); bins within
         cluster_radius merge (the analog of minimap's radius clustering,
         ref src/minimap/map.cpp, and of the reference's line tracing).
+        The native pass of lookup_many over this one read, or its numpy
+        fallback (_lookup_numpy).
         """
+        got = self._lookup_native([read_codes], cluster_radius, min_hits)
+        if got is not None:
+            return got[0]
+        trace.add('seed.python_reads', 1)
+        return self._lookup_numpy(read_codes, cluster_radius, min_hits)
+
+    def lookup_many(self, code_arrays, cluster_radius: int = 500,
+                    min_hits: int = 3):
+        """lookup() of every sequence, as a list of cluster lists, one per
+        input. One native call (native/seedmap.cpp) sketches, probes,
+        expands and clusters the whole set, over threads and without the
+        GIL, so no sequence pays a Python or ctypes call of its own; the
+        index probe is a hash table built once per index, one cache miss
+        a minimiser where searchsorted's binary search missed at each
+        step. Without the native library, or at k >= 32 (sketch.cpp holds
+        a k-mer in one uint64), the numpy formulation runs:
+        _lookup_many_numpy, one joined sketch and probe with a clustering
+        loop per sequence. Both give the clusters of per-read lookup()
+        exactly, in the same order."""
+        if not code_arrays:
+            return []
+        got = self._lookup_native(code_arrays, cluster_radius, min_hits)
+        if got is not None:
+            return got
+        trace.add('seed.python_reads', len(code_arrays))
+        return self._lookup_many_numpy(code_arrays, cluster_radius, min_hits)
+
+    def _native_probe(self):
+        """(table, bits, ref_ids, positions, strands) for native_seedmap,
+        built on the first lookup and kept on the index; None without the
+        native library."""
+        probe = getattr(self, '_probe', None)
+        if probe is None:
+            from ..native import native_seed_table
+            with _PROBE_LOCK:       # pool threads share a cached index
+                probe = getattr(self, '_probe', None)
+                if probe is None:
+                    table = native_seed_table(self.hashes)
+                    if table is None:
+                        return None
+                    probe = self._probe = table + (
+                        np.ascontiguousarray(self.ref_ids, np.int32),
+                        np.ascontiguousarray(self.positions, np.int32),
+                        np.ascontiguousarray(self.strands, np.int8))
+        return probe
+
+    def _lookup_native(self, code_arrays, cluster_radius, min_hits):
+        """lookup() of every sequence in one native call, or None where
+        the native pass cannot run."""
+        if self.k >= 32:
+            return None
+        probe = self._native_probe()
+        if probe is None:
+            return None
+        from ..native import native_seedmap
+        lengths = np.fromiter(map(len, code_arrays), np.int64,
+                              len(code_arrays))
+        offsets = np.cumsum(lengths) - lengths
+        joined = code_arrays[0] if len(code_arrays) == 1 else \
+            np.concatenate(code_arrays)
+        got = native_seedmap(joined, offsets, lengths, probe, self.k,
+                             self.w, cluster_radius, min_hits)
+        if got is None:
+            return None
+        trace.add('seed.native_reads', len(code_arrays))
+        rec, anchors_read, anchors_ref = got
+        out = [[] for _ in code_arrays]
+        for ri, rid, rev, rs, re_, ts, te, n, off in rec.tolist():
+            out[ri].append(SeedHitCluster(
+                ref_id=rid, rev_comp=rev == 1, read_start=rs, read_end=re_,
+                ref_start=ts, ref_end=te, n_hits=n,
+                anchors_read=anchors_read[off:off + n],
+                anchors_ref=anchors_ref[off:off + n]))
+        return out
+
+    def _lookup_numpy(self, read_codes, cluster_radius, min_hits):
+        """lookup() in numpy: the fallback of the native pass."""
         read_len = len(read_codes)
         mins = sketch(read_codes, self.k, self.w)
         if len(mins.hashes) == 0:
@@ -277,19 +361,13 @@ class MinimizerIndex(object):
         return self._cluster_hits(read_len, r_pos, r_str, t_ids, t_pos,
                                   t_str, cluster_radius, min_hits)
 
-    def lookup_many(self, code_arrays, cluster_radius: int = 500,
-                    min_hits: int = 3):
-        """lookup() over MANY (typically short) sequences with ONE
-        batched sketch and index probe: the sequences join with >= w
-        invalid bases between them (each invalid base voids k >= w
-        consecutive k-mers, so no window can carry a minimiser across a
-        boundary), minimisers map back to their sequence by offset, and
-        only the per-sequence diagonal clustering stays in the loop.
-        Returns a list of cluster lists, one per input. Per-read
-        sketch+probe overhead dominated the short-read polish and
-        paired-end stages (~0.45 ms x 100k reads per round)."""
-        if not code_arrays:
-            return []
+    def _lookup_many_numpy(self, code_arrays, cluster_radius, min_hits):
+        """lookup_many() in numpy, with ONE batched sketch and index
+        probe: the sequences join with >= w invalid bases between them
+        (each invalid base voids k >= w consecutive k-mers, so no window
+        can carry a minimiser across a boundary), minimisers map back to
+        their sequence by offset, and only the per-sequence diagonal
+        clustering stays in the loop."""
         k, w = self.k, self.w
         out = [[] for _ in code_arrays]
         gap = max(1, w)
@@ -309,9 +387,8 @@ class MinimizerIndex(object):
                               np.array([len(c) for c in code_arrays],
                                        np.int64), gap, k, w)
         for ri in short:    # per-read special case (< w k-mers)
-            out[ri] = self.lookup(code_arrays[ri],
-                                  cluster_radius=cluster_radius,
-                                  min_hits=min_hits)
+            out[ri] = self._lookup_numpy(code_arrays[ri], cluster_radius,
+                                         min_hits)
         if len(mins.hashes) == 0:
             return out
         seq_of = np.searchsorted(offsets, mins.pos, side='right') - 1
